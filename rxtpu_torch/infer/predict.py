@@ -1,0 +1,95 @@
+"""Test-time prediction (counterpart of ``_make_predict_body`` in
+``rxtpu/train/step.py`` and of ``rxtpu/infer/tta.py``).
+
+One predict step: raw uint8 batch -> K1 normalize (bf16 views, full size
+unless ``crop_size``) -> the BN-folded ``TwoSitesNN`` in the compute dtype ->
+f32 softmax, optionally averaged over dihedral TTA variants (probabilities
+or logits). ``predict_dataset`` drains a test ``Pipeline`` and drops the
+padding rows by their empty ``id_codes``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
+from rxtpu_torch.infer.fold import fold_for_inference
+from rxtpu_torch.models.twosites import TwoSitesNN
+from rxtpu_torch.ops.crop_norm import eval_batch_normalize
+
+View = Callable[[torch.Tensor], torch.Tensor]
+
+# dihedral variants of NCHW views [B, G, C, H, W] (H = -2, W = -1)
+_TTA_VARIANTS: Dict[str, View] = {
+    "identity": lambda v: v,
+    "hflip": lambda v: v.flip(-1),
+    "vflip": lambda v: v.flip(-2),
+    "rot180": lambda v: v.flip(-2, -1),
+    "rot90": lambda v: v.transpose(-2, -1).flip(-2),
+    "rot270": lambda v: v.transpose(-2, -1).flip(-1),
+    "transpose": lambda v: v.transpose(-2, -1),
+    "anti_transpose": lambda v: v.transpose(-2, -1).flip(-2, -1),
+}
+
+_TTA_NAMES = {
+    "none": ["identity"],
+    "flips": ["identity", "hflip", "vflip", "rot180"],
+    "dihedral": ["identity", "hflip", "vflip", "rot180", "rot90", "rot270",
+                 "transpose", "anti_transpose"],
+}
+
+
+def tta_transforms(tta: str) -> List[View]:
+    if tta not in _TTA_NAMES:
+        raise ValueError(f"unknown tta mode {tta!r}")
+    return [_TTA_VARIANTS[n] for n in _TTA_NAMES[tta]]
+
+
+class Predictor:
+    """The predict step over a model's BN-folded twin, in ``dtype``.
+
+    ``model`` is an unfolded ``TwoSitesNN`` with f32 parameters; the twin
+    is folded in f32 and then cast to ``dtype`` (bf16 compute with f32
+    parameters, as rxtpu).
+    """
+
+    def __init__(self, model: TwoSitesNN, crop_size: Optional[int] = None,
+                 tta: str = "none", average: str = "probs",
+                 dtype: torch.dtype = torch.bfloat16):
+        if average not in ("probs", "logits"):
+            raise ValueError(f"unknown tta average mode {average!r}")
+        self.net = fold_for_inference(model).to(dtype)
+        self.crop_size = crop_size
+        self.transforms = tta_transforms(tta)
+        self.average = average
+
+    @torch.inference_mode()
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """{images uint8 [B,G,C,H,W], mean/std f32 [B,C]} -> f32 probs [B, classes]."""
+        views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"],
+                                     self.crop_size)
+        acc = None
+        for t in self.transforms:
+            logits = self.net(t(views)).float()
+            term = torch.softmax(logits, dim=-1) if self.average == "probs" else logits
+            acc = term if acc is None else acc + term
+        acc = acc / len(self.transforms)
+        return acc if self.average == "probs" else torch.softmax(acc, dim=-1)
+
+
+def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device
+                    ) -> Tuple[np.ndarray, List[str]]:
+    """(probs [N, classes], id_codes [N]) for a test pipeline, padding removed."""
+    # the keep mask comes from id_codes, so `valid` never goes to the device
+    host_batches = ({k: v for k, v in b.items() if k != "valid"} for b in pipe.epoch(0))
+    all_probs, all_ids = [], []
+    for batch in device_prefetch(host_batches, device):
+        id_codes = batch.pop("id_codes")
+        probs = step(batch).cpu().numpy()
+        keep = np.asarray([i != "" for i in id_codes])
+        all_probs.append(probs[keep])
+        all_ids.extend(i for i in id_codes if i != "")
+    return np.concatenate(all_probs, axis=0), all_ids
