@@ -1,14 +1,21 @@
-"""CLI of the port: the test phase of ``rxtpu/cli.py`` on the card.
+"""CLI of the port: ``rxtpu/cli.py``'s train -> test pipeline on the card.
 
 Takes the same argv as ``rxtpu/cli.py`` (plus ``--device``), so one command
-line works for both. It loads the best checkpoint
-``models/best_model_{experiment_id}.ckpt`` (an rxtpu pickle or the port's
-own format), builds the plate groups from ``train.csv``, predicts each test
-experiment through the ``--pack`` store with the BN-folded model, masks by
-plate, assigns one class per row and writes ``submission_{id}.csv``.
+line works for both:
 
-Training is not ported yet: without the checkpoint this exits and says so.
-Train-only flags are parsed and have no effect (the phase-skip applies).
+1. config resolution with rxtpu's rules (``--debug`` caps the examples,
+   pretraining is off without ``--pretrained-path``, the source size comes
+   from the pack's JSON);
+2. training, unless ``models/best_model_{experiment_id}.ckpt`` exists (or
+   ``--resume`` finds ``models/last_{experiment_id}.ckpt``): the stratified
+   or experiment-wise split, the train and val pipelines over
+   ``{pack}/train.rxpack``, and the epoch loop with validation, best and
+   rolling checkpoints (``rxtpu_torch.train.loop``);
+3. the test phase on the best checkpoint (an rxtpu pickle or the port's own
+   format): plate groups from ``train.csv``, predict each test experiment
+   through ``{pack}/test.rxpack`` with the BN-folded model, mask by plate,
+   assign one class per row and write ``submission_{id}.csv``.
+
 Flags whose path is not ported yet exit with a message that names them.
 
     python -m rxtpu_torch.cli --pack DIR --experiment_id ID [--device cuda]
@@ -17,6 +24,7 @@ Flags whose path is not ported yet exit with a message that names them.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import List, Optional
@@ -24,13 +32,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from rxtpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig, global_batch_size
+from rxtpu_torch.config import (
+    Config, DataConfig, ModelConfig, TrainConfig, debug_overrides, global_batch_size,
+)
 
 REFERENCE_EXPERIMENT_TYPES = [3, 1, 0, 0, 0, 0, 2, 2, 3, 0, 0, 3, 1, 0, 0, 0, 2, 3]
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="rxtpu_torch CLI (test phase)")
+    p = argparse.ArgumentParser(description="rxtpu_torch CLI")
     p.add_argument("--debug", default=False, action="store_true")
     p.add_argument("--experiment_id")
     p.add_argument("--lr", type=float)
@@ -99,23 +109,61 @@ def _not_ported(args) -> Optional[str]:
         return "--distributed / --model-parallel (multi-device)"
     if not args.pack:
         return "JPEG/PNG input without --pack (the native decoder)"
+    if args.fuse_blocks == "on":
+        return "--fuse-blocks on (the fused bottleneck kernels K6/K7)"
+    if args.checkpoint_backend != "pickle":
+        return f"--checkpoint-backend {args.checkpoint_backend}"
+    if args.profile:
+        return "--profile"
     return None
 
 
 def resolve_config(args) -> Config:
+    """rxtpu's config resolution (``rxtpu/cli.py:116-188``); ``--debug`` runs
+    only on a card here, so it is never the local mode."""
     cfg = Config(
         data=DataConfig(path_data=args.data_dir, image_ext=args.image_ext),
         model=ModelConfig(head=args.head, pretrained_path=args.pretrained_path),
         train=TrainConfig(),
         experiment_id=args.experiment_id,
     )
+    if args.debug:
+        cfg = debug_overrides(cfg, local=False)
+    if args.pretrained_path:
+        cfg.model.pretrained = True
     if args.backbone:
         cfg.model.backbone = args.backbone
+    if args.epochs is not None:
+        cfg.train.nb_epochs = args.epochs
+    if args.val_fraction is not None:
+        cfg.train.val_fraction = args.val_fraction
+    if args.early_stopping:
+        cfg.train.early_stopping = True
+    if args.patience is not None:
+        if args.patience < 1 and args.early_stopping:
+            # EarlyStopping rejects patience < 1 when it is constructed; a
+            # stray --patience without --early-stopping is inert
+            raise SystemExit("--patience must be >= 1 (ignite parity: "
+                             "EarlyStopping rejects patience < 1)")
+        cfg.train.patience = args.patience
+    if args.no_scheduler:
+        cfg.train.scheduler = False
+    if args.split_by_experiment:
+        cfg.train.train_split_by_experiment = True
+    cfg.train.checkpoint_every_steps = args.checkpoint_every_steps
     if args.batch_size is not None:
         cfg.train.bs_per_device = args.batch_size
+        cfg.train.nb_examples = cfg.train.bs_per_device if args.debug else None
+    if args.crop_size is not None:
+        cfg.data.crop_size = args.crop_size
+    if args.lr is not None:
+        cfg.train.lr = args.lr
     if args.nb_classes is not None:
         cfg.model.nb_classes = args.nb_classes
     cfg.model.control_calibration = args.calibrate
+    if args.fuse_blocks != "auto":
+        cfg.model.fuse_blocks = args.fuse_blocks == "on"
+    cfg.train.augment_backend = args.augment
     if args.stats is not None:
         cfg.data.stats_path = args.stats
     else:
@@ -123,17 +171,62 @@ def resolve_config(args) -> Config:
             if os.path.exists(cand):
                 cfg.data.stats_path = cand
                 break
+    if cfg.model.pretrained and not cfg.model.pretrained_path:
+        # with nothing to load, the freeze schedule would train the head on
+        # frozen random features: train end to end instead
+        print("no --pretrained-path given: training end-to-end from random "
+              "init (pretrained freeze schedule disabled)", file=sys.stderr)
+        cfg.model.pretrained = False
     return cfg
 
 
-def build_model(cfg: Config):
-    from rxtpu_torch.models.twosites import TwoSitesNN
+def probe_src_size(pack: str, split: str) -> int:
+    """Source image side from the pack's JSON."""
+    with open(os.path.join(pack, f"{split}.rxpack.json")) as f:
+        return int(json.load(f)["h"])
 
-    return TwoSitesNN(
-        backbone=cfg.model.backbone, nb_classes=cfg.model.nb_classes,
-        size_features=cfg.model.size_features, dropout=cfg.model.dropout,
-        head=cfg.model.head, control_calibration=cfg.model.control_calibration,
+
+def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) -> None:
+    """Split, pipelines, train state and the epoch loop (``rxtpu/cli.py:314-399``)."""
+    from rxtpu_torch.data.pack import PackStore
+    from rxtpu_torch.data.pipeline import Pipeline
+    from rxtpu_torch.data.records import (
+        load_metadata, read_metadata_csvs, split_by_experiment, stratified_split,
     )
+    from rxtpu_torch.train.loop import run_training
+    from rxtpu_torch.train.setup import build_model, create_train_state
+
+    print("########## TRAINING ##########")
+    rows, controls = read_metadata_csvs(cfg.data.path_metadata, "train")
+    if cfg.train.train_split_by_experiment:
+        train_rows, val_rows = split_by_experiment(rows, random_state=cfg.train.split_seed)
+    else:
+        print("Stratify train/val split by sirna...")
+        train_rows, val_rows = stratified_split(rows, cfg.train.val_fraction,
+                                                cfg.train.split_seed)
+    if cfg.train.nb_examples is not None:
+        # keep at least one full global batch so --debug still trains a step
+        cap = max(cfg.train.nb_examples, global_bs)
+        train_rows, val_rows = train_rows[:cap], val_rows[:cap]
+    print(f"Size training dataset: {len(train_rows)}")
+    print(f"Size validation dataset: {len(val_rows)}")
+
+    idx_train = load_metadata(train_rows, controls, "train")
+    idx_val = load_metadata(val_rows, controls, "train")
+    cfg.data.src_size = probe_src_size(args.pack, "train")
+    if cfg.data.crop_size > cfg.data.src_size:
+        raise SystemExit(f"crop size {cfg.data.crop_size} exceeds source image size "
+                         f"{cfg.data.src_size}; pass --crop-size <= {cfg.data.src_size}")
+    store = PackStore(os.path.join(args.pack, "train.rxpack"))
+    pipe_train = Pipeline(idx_train, store, stats, global_bs, "train", seed=cfg.train.seed,
+                          prefetch_depth=cfg.data.prefetch_depth, two_site=args.two_site_train)
+    pipe_val = Pipeline(idx_val, store, stats, global_bs, "val", seed=cfg.train.seed,
+                        shuffle=False, drop_last=False, two_site=args.two_site_train)
+    model = build_model(cfg)
+    state, lr = create_train_state(cfg, model, max(1, len(pipe_train)), device)
+    print(f"lr: {lr}")
+    result = run_training(cfg, state, pipe_train, pipe_val, device, resume=args.resume)
+    print(f"Best validation accuracy: {result.best_accuracy:.4f}")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -150,25 +243,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     from rxtpu_torch.infer.plate_leak import constrained_predict, rescale
     from rxtpu_torch.infer.predict import Predictor, predict_dataset
     from rxtpu_torch.infer.submit import write_submission
-    from rxtpu_torch.train.checkpoint import load_checkpoint
+    from rxtpu_torch.train.checkpoint import checkpoint_exists, is_port_format, load_checkpoint
+    from rxtpu_torch.train.loop import last_checkpoint_path
+    from rxtpu_torch.train.setup import build_model
 
     cfg = resolve_config(args)
     device = resolve_device(args.device)
     global_bs = global_batch_size(cfg, 1)
     print(f"Devices: 1 ({device.type}), global batch {global_bs}")
 
-    ckpt_path = cfg.checkpoint_path
-    last_path = os.path.join(cfg.train.checkpoint_dir, f"last_{cfg.experiment_id}.ckpt")
-    if not os.path.exists(ckpt_path) or (args.resume and os.path.exists(last_path)):
-        raise SystemExit(
-            f"training is not ported to rxtpu_torch yet: the test phase needs the "
-            f"best checkpoint {ckpt_path} (train it with rxtpu)"
-            + (" and runs without --resume" if os.path.exists(ckpt_path) else ""))
     if not os.path.exists(cfg.data.stats_path):
         raise SystemExit(
             f"stats artifact {cfg.data.stats_path} missing; computing it is not "
             "ported yet (write it with `python -m rxtpu.tools stats`)")
     stats = load_stats(cfg.data.stats_path)
+
+    ckpt_path = cfg.checkpoint_path
+    # phase-skip when a best checkpoint exists, unless --resume finds a
+    # rolling one (resuming a finished run is a cheap no-op)
+    last_path = last_checkpoint_path(cfg)
+    resume_pending = args.resume and checkpoint_exists(last_path)
+    if resume_pending and not is_port_format(last_path):
+        raise SystemExit(f"--resume from an rxtpu pickle ({last_path}, optax "
+                         "state) is not ported to rxtpu_torch yet")
+    if not checkpoint_exists(ckpt_path) or resume_pending:
+        train_phase(cfg, args, stats, device, global_bs)
 
     print("\n\n########## TEST ##########")
     test_rows, test_controls = read_metadata_csvs(cfg.data.path_metadata, "test")

@@ -1,7 +1,9 @@
 """Configuration layer (counterpart of ``rxtpu/config.py``).
 
 The same dataclasses and derived rules as rxtpu: batch size scales with the
-device count, checkpoints live at ``models/best_model_{experiment_id}.ckpt``.
+device count, lr = 0.0005 x global batch unless given, ``--debug`` caps the
+examples to one batch, checkpoints live at
+``models/best_model_{experiment_id}.ckpt``.
 The port adds ``resolve_device``: entry points run on the card unless the
 caller asks for the CPU.
 """
@@ -103,8 +105,28 @@ class Config:
         )
 
 
+def debug_overrides(cfg: Config, local: bool) -> Config:
+    """``--debug``: cap the examples to one batch; local (debug without a
+    card) would also shrink the model, which the port does not run."""
+    cfg.local = local
+    cfg.debug = True
+    if local:
+        cfg.model.pretrained = False
+        cfg.train.nb_epochs = 5
+        cfg.train.bs_per_device = 2
+    cfg.train.nb_examples = cfg.train.bs_per_device
+    return cfg
+
+
 def global_batch_size(cfg: Config, n_devices: int) -> int:
     return cfg.train.bs_per_device * n_devices
+
+
+def resolve_lr(cfg: Config, n_devices: int) -> float:
+    """lr = 0.0005 x global batch unless given."""
+    if cfg.train.lr is not None:
+        return cfg.train.lr
+    return 0.0005 * global_batch_size(cfg, n_devices)
 
 
 def resolve_device(name: str = "cuda") -> torch.device:

@@ -1,5 +1,19 @@
-"""Synthetic test-phase fixture, numpy only (the plate-balanced layout of
+"""Synthetic fixtures, numpy only (the plate-balanced layout of
 ``rxtpu/data/synthetic.py``), and seeded random model weights.
+
+``make_train_fixture`` writes what training and then the test phase read,
+with no image files:
+
+- ``train.csv`` + ``train_controls.csv``: ``n_experiments`` labelled
+  experiments of one cell type (``HUVEC-01``...), ``wells_per_experiment``
+  wells each spread over 4 plates (sirna k of an experiment is
+  ``k % nb_classes``), plus each plate's B02 negative control and
+  ``pos_controls_per_plate`` positive controls;
+- ``packs/train.rxpack``: both sites of every train and control well;
+- a test experiment as below (``U2OS-01``, sirna k on plate ``k % 4 + 1``;
+  this ``train.csv`` is too small for plate groups, so its test phase runs
+  with ``--no-plate-leak`` or the argmax fallback);
+- ``stats_experiments.json`` for every experiment.
 
 ``make_test_fixture`` writes what the test phase reads, with no image
 files: metadata CSVs, a stats JSON and a raw pack of the test views.
@@ -15,6 +29,8 @@ files: metadata CSVs, a stats JSON and a raw pack of the test views.
   uint8 [6, img_size, img_size] views.
 - ``stats_experiments.json``: the test experiment's per-channel mean/std of
   those views.
+
+Views are random uint8 [6, img_size, img_size] planes.
 
 ``randomize_`` gives a model random weights from a seeded
 ``torch.Generator``, BN affines and running stats included.
@@ -34,7 +50,8 @@ from rxtpu_torch.config import NB_CHANNELS
 from rxtpu_torch.data.pack import write_raw_pack
 from rxtpu_torch.data.records import NEG_CONTROL_WELL, build_plate_groups
 from rxtpu_torch.data.stats import save_stats
-from rxtpu_torch.models.resnet import BatchNorm, BottleneckBlock, ResNetBlock
+from rxtpu_torch.models.norm import BatchNorm
+from rxtpu_torch.models.resnet import BottleneckBlock, ResNetBlock
 
 _ROWS = "BCDEFGHIJKLMNO"  # 14 x 22 = 308 wells, B02..O23
 
@@ -89,41 +106,17 @@ def make_test_fixture(root: str, nb_classes: int = 1108, n_test_wells: int = 32,
         test_rows.append(dict(id_code=f"{exp}_{plate}_{well}", experiment=exp,
                               plate=plate, well=well))
         truth.append(k)
-    control_rows = []
-    for plate in (1, 2, 3, 4):
-        control_rows.append(dict(id_code=f"{exp}_{plate}_{NEG_CONTROL_WELL}", experiment=exp,
-                                 plate=plate, well=NEG_CONTROL_WELL, sirna=1138,
-                                 well_type="negative_control"))
-        for p in range(pos_controls_per_plate):
-            well = well_name(1 + p)
-            control_rows.append(dict(id_code=f"{exp}_{plate}_{well}", experiment=exp,
-                                     plate=plate, well=well, sirna=1108 + p,
-                                     well_type="positive_control"))
+    control_rows = _controls(exp, pos_controls_per_plate)
     _write_csv(os.path.join(meta, "test.csv"), test_rows,
                ["id_code", "experiment", "plate", "well"])
     _write_csv(os.path.join(meta, "test_controls.csv"), control_rows,
                ["id_code", "experiment", "plate", "well", "sirna", "well_type"])
 
-    sums = np.zeros((NB_CHANNELS, 2))  # sum(x/255), sum((x/255)^2) per channel
-    n_views = 0
-
-    def views():
-        nonlocal n_views
-        for row in test_rows + control_rows:
-            for site in (1, 2):
-                view = rng.integers(0, 256, (NB_CHANNELS, img_size, img_size), dtype=np.uint8)
-                x = view.reshape(NB_CHANNELS, -1).astype(np.float64) / 255.0
-                sums[:, 0] += x.sum(axis=1)
-                sums[:, 1] += (x * x).sum(axis=1)
-                n_views += 1
-                yield (row["experiment"], row["plate"], row["well"], site), view
-
-    pack = write_raw_pack(os.path.join(root, "packs"), "test", views())
-    count = n_views * img_size * img_size
-    mean = sums[:, 0] / count
+    stats: Dict = {}
+    pack = _write_pack(os.path.join(root, "packs"), "test", test_rows + control_rows,
+                       img_size, rng, stats)
     stats_path = os.path.join(root, "stats_experiments.json")
-    save_stats({exp: {"mean": mean, "std": np.sqrt(sums[:, 1] / count - mean**2)}},
-               stats_path)
+    save_stats(stats, stats_path)
     return {
         "data_dir": os.path.join(root, "data"),
         "pack_dir": os.path.join(root, "packs"),
@@ -132,6 +125,97 @@ def make_test_fixture(root: str, nb_classes: int = 1108, n_test_wells: int = 32,
         "test_rows": test_rows,
         "truth": truth,
         "plate_groups": plate_groups,
+    }
+
+
+def _write_pack(out_dir: str, split: str, rows: List[Dict], img_size: int,
+                rng: np.random.Generator, stats: Dict) -> str:
+    """Both sites of every row as random views; adds each experiment's
+    per-channel mean/std of its views to ``stats``."""
+    sums: Dict[str, np.ndarray] = {}  # per experiment: sum(x/255), sum((x/255)^2), count
+
+    def views():
+        for row in rows:
+            for site in (1, 2):
+                view = rng.integers(0, 256, (NB_CHANNELS, img_size, img_size), dtype=np.uint8)
+                x = view.reshape(NB_CHANNELS, -1).astype(np.float64) / 255.0
+                acc = sums.setdefault(row["experiment"], np.zeros((NB_CHANNELS, 3)))
+                acc[:, 0] += x.sum(axis=1)
+                acc[:, 1] += (x * x).sum(axis=1)
+                acc[:, 2] += x.shape[1]
+                yield (row["experiment"], row["plate"], row["well"], site), view
+
+    pack = write_raw_pack(out_dir, split, views())
+    for exp, acc in sums.items():
+        mean = acc[:, 0] / acc[:, 2]
+        stats[exp] = {"mean": mean, "std": np.sqrt(acc[:, 1] / acc[:, 2] - mean**2)}
+    return pack
+
+
+def _controls(exp: str, pos_controls_per_plate: int) -> List[Dict]:
+    rows = []
+    for plate in (1, 2, 3, 4):
+        rows.append(dict(id_code=f"{exp}_{plate}_{NEG_CONTROL_WELL}", experiment=exp,
+                         plate=plate, well=NEG_CONTROL_WELL, sirna=1138,
+                         well_type="negative_control"))
+        for p in range(pos_controls_per_plate):
+            well = well_name(1 + p)
+            rows.append(dict(id_code=f"{exp}_{plate}_{well}", experiment=exp, plate=plate,
+                             well=well, sirna=1108 + p, well_type="positive_control"))
+    return rows
+
+
+def make_train_fixture(root: str, nb_classes: int = 1108, n_experiments: int = 3,
+                       wells_per_experiment: int = 32, n_test_wells: int = 16,
+                       img_size: int = 512, pos_controls_per_plate: int = 2,
+                       seed: int = 0) -> Dict:
+    """Write the training fixture under ``root``; returns paths and rows."""
+    if wells_per_experiment > 4 * (306 - pos_controls_per_plate):
+        raise ValueError("more wells than 4 plates hold")
+    rng = np.random.default_rng(seed)
+    meta = os.path.join(root, "data", "metadata")
+    os.makedirs(meta, exist_ok=True)
+    first_sample_well = 1 + pos_controls_per_plate
+
+    def sample_rows(exp: str, n: int, labelled: bool) -> List[Dict]:
+        rows = []
+        used = {p: 0 for p in (1, 2, 3, 4)}
+        for k in range(n):
+            plate = k % 4 + 1
+            well = well_name(first_sample_well + used[plate])
+            used[plate] += 1
+            row = dict(id_code=f"{exp}_{plate}_{well}", experiment=exp, plate=plate, well=well)
+            if labelled:
+                row["sirna"] = k % nb_classes
+            rows.append(row)
+        return rows
+
+    experiments = [f"HUVEC-{e + 1:02d}" for e in range(n_experiments)]
+    train_rows = [r for exp in experiments
+                  for r in sample_rows(exp, wells_per_experiment, True)]
+    train_controls = [r for exp in experiments for r in _controls(exp, pos_controls_per_plate)]
+    test_rows = sample_rows("U2OS-01", n_test_wells, False)
+    test_controls = _controls("U2OS-01", pos_controls_per_plate)
+    columns = ["id_code", "experiment", "plate", "well"]
+    _write_csv(os.path.join(meta, "train.csv"), train_rows, columns + ["sirna"])
+    _write_csv(os.path.join(meta, "train_controls.csv"), train_controls,
+               columns + ["sirna", "well_type"])
+    _write_csv(os.path.join(meta, "test.csv"), test_rows, columns)
+    _write_csv(os.path.join(meta, "test_controls.csv"), test_controls,
+               columns + ["sirna", "well_type"])
+
+    stats: Dict = {}
+    pack_dir = os.path.join(root, "packs")
+    _write_pack(pack_dir, "train", train_rows + train_controls, img_size, rng, stats)
+    _write_pack(pack_dir, "test", test_rows + test_controls, img_size, rng, stats)
+    stats_path = os.path.join(root, "stats_experiments.json")
+    save_stats(stats, stats_path)
+    return {
+        "data_dir": os.path.join(root, "data"),
+        "pack_dir": pack_dir,
+        "stats": stats_path,
+        "train_rows": train_rows,
+        "test_rows": test_rows,
     }
 
 

@@ -1,10 +1,11 @@
 from rxtpu_torch.models.heads import MLPHead
+from rxtpu_torch.models.norm import BatchNorm, Dropout
 from rxtpu_torch.models.resnet import (
-    BatchNorm, BottleneckBlock, ResNet, ResNetBlock, make_backbone,
+    BottleneckBlock, ResNet, ResNetBlock, compute_dtype, init_weights, make_backbone,
 )
 from rxtpu_torch.models.twosites import TwoSitesNN
 
 __all__ = [
-    "BatchNorm", "BottleneckBlock", "MLPHead", "ResNet", "ResNetBlock", "TwoSitesNN",
-    "make_backbone",
+    "BatchNorm", "BottleneckBlock", "Dropout", "MLPHead", "ResNet", "ResNetBlock",
+    "TwoSitesNN", "compute_dtype", "init_weights", "make_backbone",
 ]

@@ -6,16 +6,29 @@ parameter tree (``conv_init``/``bn_init``, ``stage{i}_block{j}`` with
 ``Conv_k``/``BatchNorm_k``, ``conv_proj``/``norm_proj``) so that
 ``rxtpu_torch.models.convert.from_flax`` maps weights one to one.
 
-Eval only in this slice: the BatchNorm here applies its running statistics
-as rxtpu's eval BN does (``rxtpu/models/norm.py:123-127``) and refuses train
-mode. ``folded=True`` is the inference variant that consumes BN-folded
+The BatchNorm is rxtpu's (``rxtpu_torch/models/norm.py``), in train and
+eval mode. ``folded=True`` is the inference variant that consumes BN-folded
 weights (``rxtpu_torch.infer.fold``): convs carry a bias, norms are gone.
 The 3x3 convs pad (1,1) explicitly, the stem is a 7x7/2 conv padded 3, then
 a 3x3/2 max pool padded 1, and features are the global mean.
+
+Compute dtype: the input is cast to ``compute_dtype`` (the autocast dtype
+inside ``torch.autocast``, else the parameters' dtype). bf16 training runs
+f32 parameters under ``torch.autocast``: convs and linears take bf16
+copies of their weights and inputs and return bf16, and the gradients land
+on the f32 parameters. That is flax's ``dtype=bf16, param_dtype=f32``,
+with two differences: autocast casts only the ops on its list (convs,
+matmuls), so elementwise ops simply run in the dtype of what they receive
+(bf16 activations here, as in flax), and a linear's bias is added inside
+the bf16 matmul instead of after it. ``init_weights`` draws rxtpu's
+initial distributions (not its bits): He normal over fan-out for convs,
+flax's LeCun truncated normal and zero biases for linears, BN scale one
+and bias zero, and a zero scale on each block's last BN.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Type
 
 import torch
@@ -23,33 +36,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from rxtpu_torch.config import NB_CHANNELS
+from rxtpu_torch.models.norm import BatchNorm
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with rxtpu's rounding form ``x*mul + add``.
-
-    ``mul = weight * rsqrt(var + eps)`` and ``add = bias - mean * mul`` are
-    computed in f32 and applied in the input's dtype. Works on [N, C] and
-    [N, C, H, W]. State-dict names are torch's (``weight``, ``bias``,
-    ``running_mean``, ``running_var``).
-    """
-
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer("running_mean", torch.zeros(num_features))
-        self.register_buffer("running_var", torch.ones(num_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
-        mul = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        add = self.bias.float() - self.running_mean.float() * mul
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+def compute_dtype(param: torch.Tensor) -> torch.dtype:
+    """The dtype a module computes in: autocast's when it is on, else its
+    parameters'."""
+    device = param.device.type
+    if torch.is_autocast_enabled(device):
+        return torch.get_autocast_dtype(device)
+    return param.dtype
 
 
 def _norm_factory(folded: bool):
@@ -115,8 +111,8 @@ class BottleneckBlock(nn.Module):
 class ResNet(nn.Module):
     """Feature extractor: stem + 4 stages + global mean pool -> [N, F].
 
-    The input is cast to the parameters' dtype, so ``.to(torch.bfloat16)``
-    gives rxtpu's bf16 compute.
+    The input is cast to ``compute_dtype``: bf16 under ``torch.autocast``
+    (f32 parameters) or after ``.to(torch.bfloat16)`` (the folded twin).
     """
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
@@ -138,7 +134,7 @@ class ResNet(nn.Module):
         self.num_features = channels
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.conv_init.weight.dtype)
+        x = x.to(compute_dtype(self.conv_init.weight))
         x = F.relu(self.bn_init(self.conv_init(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.block_names:
@@ -154,9 +150,47 @@ _ARCHS = {
     "resnet152": ([3, 8, 36, 3], BottleneckBlock),
 }
 
+
 def make_backbone(arch: str, folded: bool = False) -> ResNet:
     if arch not in _ARCHS:
         raise ValueError(
             f"backbone {arch!r} is not ported (ported: {sorted(_ARCHS)})")
     stage_sizes, block_cls = _ARCHS[arch]
     return ResNet(stage_sizes, block_cls, folded=folded)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """rxtpu's initial distributions, in place, from ``generator`` (CPU).
+
+    Convs: normal with std sqrt(2 / fan_out) (``rxtpu/models/resnet.py:179``);
+    linears: flax's default, LeCun truncated normal (std sqrt(1 / fan_in)
+    / 0.8796, cut at two std) and zero biases (``rxtpu/models/heads.py:35``);
+    BN: scale one, bias zero, running mean zero and variance one, except the
+    last BN of each residual branch, whose scale starts at zero
+    (``rxtpu/models/resnet.py:74,122``).
+    """
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_out = mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator)
+                             * math.sqrt(2.0 / fan_out))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
+            std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
+            w = torch.empty(mod.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            mod.weight.copy_(w)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    for mod in model.modules():
+        if isinstance(mod, BottleneckBlock) and isinstance(mod.BatchNorm_2, BatchNorm):
+            mod.BatchNorm_2.weight.zero_()
+        elif isinstance(mod, ResNetBlock) and isinstance(mod.BatchNorm_1, BatchNorm):
+            mod.BatchNorm_1.weight.zero_()
+    return model

@@ -5,7 +5,8 @@ x: [B, G, C, H, W] with G divisible by 3. The G axis folds into the batch
 for one backbone pass; features regroup as [B, 3, G/3, F] and are averaged
 over each third of G (view order ``[img_s1, img_s2, neg_s1, neg_s2, pos_s1,
 pos_s2]`` at G=6, the two-site test layout), then concatenate to [B, 3F]
-for the head.
+for the head. ``set_dropout_generator`` points the head's dropout at a
+generator (the train step's per-step generator).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from rxtpu_torch.models.heads import MLPHead
+from rxtpu_torch.models.norm import Dropout
 from rxtpu_torch.models.resnet import make_backbone
 
 
@@ -46,3 +48,8 @@ class TwoSitesNN(nn.Module):
             img, neg, pos = grouped.unbind(1)
             grouped = torch.stack([img - neg, neg, pos - neg], dim=1)
         return self.head(grouped.reshape(b, 3 * f))
+
+    def set_dropout_generator(self, generator) -> None:
+        for mod in self.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = generator

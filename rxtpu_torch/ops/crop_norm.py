@@ -95,6 +95,16 @@ def crop_normalize(planes: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 crop_normalize.launches = 0
 
 
+def normalize_params(mean: torch.Tensor, std: torch.Tensor, g: int):
+    """Per-plane (scale, bias) f32 [B*G*C] of ``(x/255 - mean) / std`` on raw
+    0..255 values, for planes in (b, g, c) order; mean/std are [B, C]."""
+    b, c = mean.shape
+    scale = (1.0 / (255.0 * std)).to(torch.float32)
+    bias = (-mean / std).to(torch.float32)
+    return (scale[:, None, :].expand(b, g, c).reshape(-1),
+            bias[:, None, :].expand(b, g, c).reshape(-1))
+
+
 def eval_batch_normalize(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                          crop_size: Optional[int] = 364,
                          out_dtype: torch.dtype = torch.bfloat16,
@@ -111,15 +121,11 @@ def eval_batch_normalize(images: torch.Tensor, mean: torch.Tensor, std: torch.Te
     if crop_size is None:
         crop_size = h
     planes = images.reshape(b * g * c, h, w)
-    scale = (1.0 / (255.0 * std)).to(torch.float32)
-    bias = (-mean / std).to(torch.float32)
+    scale, bias = normalize_params(mean, std, g)
     if quant_scale is not None:
         inv = 1.0 / torch.as_tensor(quant_scale, dtype=torch.float32, device=scale.device)
         scale = scale * inv
         bias = bias * inv
         out_dtype = torch.int8
-    # per plane, in the planes' (b, g, c) order
-    scale = scale[:, None, :].expand(b, g, c).reshape(-1)
-    bias = bias[:, None, :].expand(b, g, c).reshape(-1)
     out = crop_normalize(planes, scale, bias, crop_size, out_dtype)
     return out.reshape(b, g, c, crop_size, crop_size)

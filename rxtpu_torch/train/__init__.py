@@ -1,3 +1,6 @@
-from rxtpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from rxtpu_torch.train.checkpoint import (
+    BestCheckpointer, checkpoint_exists, load_checkpoint, load_train_state, save_checkpoint,
+)
 
-__all__ = ["load_checkpoint", "save_checkpoint"]
+__all__ = ["BestCheckpointer", "checkpoint_exists", "load_checkpoint", "load_train_state",
+           "save_checkpoint"]

@@ -115,6 +115,17 @@ def test_fold_matches_unfolded_and_rxtpu_fold():
 
 
 def test_batchnorm_refuses_train_mode():
+    """In train mode the BatchNorm refuses its running statistics: it
+    normalizes with the batch's own and only moves the running ones (train
+    mode is ported; its parity with rxtpu is in test_torch_port_train.py)."""
     bn = port_resnet.BatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 4))
+    with torch.no_grad():
+        bn.running_mean.fill_(5.0)
+        bn.running_var.fill_(100.0)
+    x = torch.randn(64, 4, generator=torch.Generator().manual_seed(0)) * 3 + 2
+    y = bn.train()(x).detach()
+    torch.testing.assert_close(y.mean(0), torch.zeros(4), atol=1e-5, rtol=0)
+    torch.testing.assert_close(y.std(0, unbiased=False), torch.ones(4), atol=1e-3, rtol=0)
+    torch.testing.assert_close(bn.running_mean, 0.9 * 5.0 + 0.1 * x.mean(0))
+    torch.testing.assert_close(bn.running_var, 0.9 * 100.0 + 0.1 * x.var(0, unbiased=True))
+    assert not torch.allclose(bn.eval()(x), y)  # eval mode does use them

@@ -6,7 +6,8 @@
   bytes and the test-mode Pipeline batches against rxtpu's;
 - an rxtpu pickle checkpoint (with its optax state) through the restricted
   unpickler;
-- the package imports with JAX, flax, optax, pandas and rxtpu blocked, and
+- the package imports with JAX, flax, optax, pandas, sklearn, tensorboardX
+  and rxtpu blocked, and
   ``chip_smoke.py`` refuses to run without a card or without the package;
 - the slice as a whole: rxtpu's CLI trains a tiny resnet18 checkpoint on a
   raw pack, then both CLIs run the test phase on it in f32 and must write
@@ -202,7 +203,8 @@ def test_rxtpu_pickle_checkpoint_loads_without_jax_classes(tmp_path):
 
 _IMPORT_ALL = """
 import sys, importlib, importlib.util, pkgutil
-for name in ("jax", "jaxlib", "flax", "optax", "pandas", "rxtpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "tensorboardX",
+             "rxtpu"):
     sys.modules[name] = None
 import rxtpu_torch
 mods = [m.name for m in pkgutil.walk_packages(rxtpu_torch.__path__, "rxtpu_torch.")]
@@ -218,7 +220,7 @@ def test_port_imports_without_jax_pandas_or_rxtpu(tmp_path):
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the package was walked
+    assert int(out.stdout.strip()) >= 30  # every module of the package was walked
     # chip_smoke.py exits non-zero, printing no result, without a card here
     # and, anywhere, in a directory that holds nothing else of the repository
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
@@ -303,8 +305,8 @@ def test_slice_probs_do_not_depend_on_batch_size(trained_root):
     np.testing.assert_allclose(results[0][0], results[1][0], rtol=5e-7, atol=0)
 
 
-def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch):
-    """chip_smoke's end-to-end phase at a tiny size: the numpy-only fixture,
+def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
+    """chip_smoke's test-phase run at a tiny size: the numpy-only fixture,
     a seeded random checkpoint in the port's format, the CLI in bf16."""
     import json
 
@@ -316,8 +318,11 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch):
     argv = ["--experiment_id", "fx", "--pack", fx["pack_dir"], "--data-dir", fx["data_dir"],
             "--stats", fx["stats"], "--nb-classes", "40", "--backbone", "resnet18",
             "--batch-size", "4", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="training is not ported"):
+    # without a best checkpoint the CLI trains first; this fixture holds no
+    # train split (test_torch_port_trainloop.py trains on one)
+    with pytest.raises(FileNotFoundError, match="train_controls.csv"):
         port_cli.main(argv)
+    assert "########## TRAINING ##########" in capsys.readouterr().out
     save_checkpoint("models/best_model_fx.ckpt",
                     randomize_(TwoSitesNN("resnet18", nb_classes=40), seed=0).state_dict())
     assert port_cli.main(argv) == 0
