@@ -13,7 +13,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    (288 planes of 512^2, crop 364 and an odd 363, shifts past both clamps,
    uint8 and f32 input, every reversal pair, f32 and bf16 out); then the
    composed shear augment of one [16, 3, 6, 512, 512] batch against the
-   composed plain path;
+   composed plain path; K5 (fused_stem) in bf16 and f32 at the validation
+   shape [48, 6, 512^2] cropped to 364, the test shape [96, 6, 512^2]
+   uncropped and an odd 363 crop, TF32 off for the plain version: bf16
+   within one ulp, f32 within 1e-5 of max|out|;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -21,7 +24,14 @@ Phases, each ending the run with a non-zero exit when it fails:
    logged losses and the checkpoints checked, and ``--resume`` on the
    finished run must train nothing and still write the submission;
 4. the test phase end to end (plate-leak assignment) on the checkpoint
-   phase 3 trained;
+   phase 3 trained, then again with ``--predict-scan-window 2`` (rxtpu's
+   scanned predict window; the port predicts one batch per step whatever
+   the window): the same submission, byte for byte;
+4b. the K5 path at full width on phase 3's last checkpoint: ``EvalStep`` and
+   ``Predictor`` with ``fused_stem=True`` against the unfused steps on one
+   validation batch (G=3, crop 364) and one test batch (G=6, 512), K5
+   launched once per call and K1 not at all, and ``predict_dataset`` over
+   phase 4's test pipeline with both (plate-leak assignments compared);
 5. the card against the CPU: f32 predict logits on one full-width batch, and
    one f32 train step (loss, updated parameters and BN statistics, momentum
    buffers) against the same step in f64, with the CPU's f32 step beside it;
@@ -29,7 +39,11 @@ Phases, each ending the run with a non-zero exit when it fails:
 7. timings by CUDA events after warm-up: K2-K4 next to their bounds and
    plain versions, the whole augment next to one ``F.grid_sample`` warp,
    the train step (ms, views/s, peak memory, device time by kernel with the
-   augment's share), and K1 and the predict step as before.
+   augment's share), and K1 and the predict step as before; K5 at the
+   validation and test shapes next to its bounds, its plain version and the
+   unfused stem (K1, cuDNN conv with bias, ReLU, max pool); the eval and
+   predict steps fused and unfused (ms, views/s, memory) and a profile of
+   the fused predict step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -51,6 +65,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+STEM_F32_REL = 1e-5         # K5 against its plain version, f32 output: bound / max|out|
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 P, SRC, CROP, B, G = 16 * 3 * 6, 512, 364, 16, 3  # the train step's planes and shapes
@@ -136,12 +152,35 @@ def shear_bounds(kf, pads, p, h, w, crop):
     return {"shear_pass": k2, "shear_pass_rows": k3, "shear_pass_finish": k4}
 
 
+def bf16_gap(out, ref):
+    """(share of elements that differ, elements more than one bf16 ulp apart,
+    max |out - ref|) of two bf16 tensors."""
+    import torch
+
+    a, b = out.float(), ref.float()
+    d = (a - b).abs()
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
+    return float((d > 0).float().mean()), int((d > ulp).sum()), float(d.max())
+
+
+def k5_work(n, crop):
+    """K5's bytes (the cropped uint8 pixels, scale/bias, bf16 weights and f32
+    bias read once, the bf16 maps written once) and operations (294
+    multiply-adds per conv output)."""
+    conv = (crop - 1) // 2 + 1
+    pool = (conv - 1) // 2 + 1
+    moved = n * 6 * crop * crop + 2 * 4 * n * 6 + 64 * 294 * 2 + 64 * 4 + n * 64 * pool * pool * 2
+    return moved, 2 * n * 64 * conv * conv * 294
+
+
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -302,6 +341,59 @@ def main() -> int:
         fail("the composed shear augment differs from the composed plain path")
     del plain
 
+    phase("2 K5 fused_stem against its plain version (bf16 within one ulp, f32 within "
+          f"{STEM_F32_REL:g} of max|out|)")
+    from rxtpu_torch.ops.fused_stem import fused_stem, fused_stem_reference, stem_out_size
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"plain version's f32 conv: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    fgen = torch.Generator(device=dev).manual_seed(5)
+    stem_imgs = torch.randint(0, 256, (96, 6, SRC, SRC), dtype=torch.uint8, device=dev,
+                              generator=fgen)
+    stem_std = torch.rand(96, 6, device=dev, generator=fgen) * 0.25 + 0.05
+    stem_mean = torch.rand(96, 6, device=dev, generator=fgen) * 0.5 + 0.1
+    stem_scale = (1.0 / (255.0 * stem_std)).float()
+    stem_bias = (-stem_mean / stem_std).float()
+    stem_w = torch.randn(64, 6, 7, 7, device=dev, generator=fgen) * math.sqrt(2.0 / (64 * 49))
+    stem_cb = torch.randn(64, device=dev, generator=fgen) * 0.5
+    stem_cases = {"val": (48, CROP), "test": (96, None), "odd crop": (48, CROP - 1)}
+
+    def stem_args(label):
+        nv, crop = stem_cases[label]
+        return (stem_imgs[:nv], stem_scale[:nv], stem_bias[:nv], stem_w, stem_cb, crop)
+
+    k5_err = 0.0
+    for label in stem_cases:
+        for dt in (torch.bfloat16, torch.float32):
+            out = fused_stem(*stem_args(label), dt)
+            ref = fused_stem_reference(*stem_args(label), dt)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype or not bool(
+                    torch.isfinite(out).all()):
+                fail(f"K5 gave {out.dtype} {tuple(out.shape)} against {ref.dtype} "
+                     f"{tuple(ref.shape)}, or non-finite values")
+            top = float(ref.float().abs().max())
+            if dt == torch.bfloat16:
+                share, over, err = bf16_gap(out, ref)
+                k5_err = max(k5_err, err)
+                print(f"K5 {label:8s} {tuple(out.shape)} bf16: {100 * share:.4f}% of elements "
+                      f"differ, {over} by more than one ulp, max_abs_diff {err} (max|out| {top})")
+                if over:
+                    fail(f"K5 differs from its plain version by more than one bf16 ulp ({label})")
+            else:
+                err = float((out - ref).abs().max())
+                k5_err = max(k5_err, err)
+                print(f"K5 {label:8s} {tuple(out.shape)} f32: max_abs_diff {err:.6g} = "
+                      f"{err / top:.3g} of max|out| {top:.6g} (bound {STEM_F32_REL:g})")
+                if err > STEM_F32_REL * top:
+                    fail(f"K5 f32 output differs from its plain version ({label})")
+            if top < 1.0 or float((ref == 0).float().mean()) > 0.5:
+                fail(f"K5 check on a degenerate output ({label})")
+    torch.backends.cudnn.allow_tf32 = True
+    del out, ref
+
     # ---- 3. training end to end ---------------------------------------------
     phase("3 training end to end at full width (rxtpu_torch.cli)")
     from rxtpu_torch import cli
@@ -432,6 +524,131 @@ def main() -> int:
             fail(f"plate {plate}: assignment is not one-to-one")
     print(f"submission: {len(sub)} rows, plates {sorted(by_plate)}, one-to-one per plate, "
           f"plate leak respected")
+    with open(os.path.join(test_dir, "submission_smoke.csv"), "rb") as f:
+        sub_bytes = f.read()
+    out_dir = os.path.join(test_dir, "scan2")
+    os.makedirs(out_dir)
+    argv_w = [out_dir if a == test_dir else a for a in argv]
+    os.chdir(test_dir)
+    crop_normalize.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv_w + ["--predict-scan-window", "2"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    print(f"--predict-scan-window 2: cli rc {rc} in {time.perf_counter() - t0:.2f} s; "
+          f"crop_norm launches {crop_normalize.launches} for {n_batches} batches")
+    if rc != 0 or crop_normalize.launches != n_batches:
+        fail(f"--predict-scan-window 2 run failed or launched K1 {crop_normalize.launches} times")
+    with open(os.path.join(out_dir, "submission_smoke.csv"), "rb") as f:
+        if f.read() != sub_bytes:
+            fail("--predict-scan-window 2 wrote another submission")
+    print("scan-window submission: byte-equal to window 1")
+
+    # ---- 4b. the K5 path at full width ----------------------------------------
+    phase("4b K5 path at full width: EvalStep / Predictor(fused_stem=True) on the trained "
+          "checkpoint")
+    from rxtpu_torch.data.pack import PackStore
+    from rxtpu_torch.data.pipeline import Pipeline
+    from rxtpu_torch.data.records import load_metadata, read_metadata_csvs
+    from rxtpu_torch.data.stats import load_stats
+    from rxtpu_torch.infer.plate_leak import constrained_predict
+    from rxtpu_torch.infer.predict import Predictor, predict_dataset
+    from rxtpu_torch.train.checkpoint import load_checkpoint
+    from rxtpu_torch.train.step import EvalStep
+
+    # the last checkpoint: its BN statistics have moved, so the stem's folded
+    # bias is not a bf16 number (the best one is the initial state, whose
+    # folded stem bias is 0: random labels never improve on it)
+    trained = TwoSitesNN("resnet50", nb_classes=1108)
+    trained.load_state_dict(load_checkpoint(os.path.join(train_dir, "models", "last_smoke.ckpt")))
+    trained = trained.to(dev).eval()
+    egen = torch.Generator(device=dev).manual_seed(6)
+    val_batch = {
+        "images": torch.randint(0, 256, (B, G, 6, SRC, SRC), dtype=torch.uint8, device=dev,
+                                generator=egen),
+        "labels": torch.randint(0, 1108, (B,), device=dev, generator=egen),
+        "mean": torch.rand(B, 6, device=dev, generator=egen) * 0.4 + 0.1,
+        "std": torch.rand(B, 6, device=dev, generator=egen) * 0.2 + 0.05,
+    }
+    test_batch = {
+        "images": torch.randint(0, 256, (B, 6, 6, SRC, SRC), dtype=torch.uint8, device=dev,
+                                generator=egen),
+        "mean": torch.rand(B, 6, device=dev, generator=egen) * 0.4 + 0.1,
+        "std": torch.rand(B, 6, device=dev, generator=egen) * 0.2 + 0.05,
+    }
+    evals = {f: EvalStep(trained, CROP, torch.bfloat16, fused_stem=f) for f in (False, True)}
+    preds = {f: Predictor(trained, None, dtype=torch.bfloat16, fused_stem=f)
+             for f in (False, True)}
+
+    def counted(fn, fused, label):
+        k5, k1 = fused_stem.launches, crop_normalize.launches
+        out = fn()
+        torch.cuda.synchronize()
+        got = (fused_stem.launches - k5, crop_normalize.launches - k1)
+        if got != ((1, 0) if fused else (0, 1)):
+            fail(f"{label}: K5/K1 launched {got} times in one {'fused' if fused else 'unfused'} "
+                 "call")
+        return out
+
+    # the path's K5 launches are counted from here to the end of the phase
+    fused_stem.launches = crop_normalize.launches = 0
+    logits = {f: counted(lambda: evals[f].logits(val_batch), f, "EvalStep.logits")
+              for f in (False, True)}
+    metrics = {f: counted(lambda: evals[f](val_batch), f, "EvalStep") for f in (False, True)}
+    probs = {f: counted(lambda: preds[f](test_batch), f, "Predictor") for f in (False, True)}
+    lu, lf = logits[False], logits[True]
+    eval_rel = float((lf - lu).abs().max() / lu.abs().max())
+    eval_agree = float((lf.argmax(-1) == lu.argmax(-1)).float().mean())
+    loss_rel = abs(float(metrics[True]["loss_sum"]) / float(metrics[False]["loss_sum"]) - 1)
+    prob_gap = float((probs[True] - probs[False]).abs().max())
+    pred_agree = float((probs[True].argmax(-1) == probs[False].argmax(-1)).float().mean())
+    print(f"eval B={B} G={G} crop {CROP}: logits max|fused - unfused| / max|logit| {eval_rel:.4g} "
+          f"(max|logit| {float(lu.abs().max()):.4g}), argmax agreement {eval_agree:.4f}, "
+          f"loss_sum rel {loss_rel:.4g}, correct {float(metrics[True]['correct'])} vs "
+          f"{float(metrics[False]['correct'])}")
+    print(f"predict B={B} G=6 {SRC}^2: max|probs fused - unfused| {prob_gap:.4g} (max prob "
+          f"{float(probs[False].max()):.4g}), argmax agreement {pred_agree:.4f}")
+    # The two paths round differently: the unfused stem adds the bf16 bias of
+    # the cast twin and rounds the conv to bf16 before the ReLU and the pool,
+    # K5 adds the f32 bias and rounds once. Limits, with the H100 readings
+    # beside them: eval logits 5.7e-3 of max|logit|, loss_sum 3.6e-5, test
+    # probabilities 2.5e-3 (max prob 0.13), predict_dataset probabilities
+    # 1.3e-5, argmax agreement 1.0 on both batches.
+    limits = {"eval_rel": 0.03, "loss_rel": 2e-4, "prob_gap": 0.01, "ds_gap": 1e-4,
+              "min_agree": 0.875}
+    print(f"fused against unfused limits: {limits}")
+    if any(not math.isfinite(v) or v > limits[k] for k, v in
+           (("eval_rel", eval_rel), ("loss_rel", loss_rel), ("prob_gap", prob_gap))) or min(
+               eval_agree, pred_agree) < limits["min_agree"]:
+        fail("the fused stem path disagrees with the unfused path")
+
+    rows, ctrl = read_metadata_csvs(os.path.join(fx["data_dir"], "metadata"), "test")
+    index = load_metadata(rows, ctrl, "test")
+    store, stats = PackStore(fx["pack"]), load_stats(fx["stats"])
+    plates = np.asarray([r["plate"] for r in rows])
+    drained, assigned = {}, {}
+    for f in (False, True):
+        k5, k1 = fused_stem.launches, crop_normalize.launches
+        drained[f] = predict_dataset(preds[f], Pipeline(index, store, stats, B), dev)
+        torch.cuda.synchronize()
+        want = (n_batches, 0) if f else (0, n_batches)
+        if (fused_stem.launches - k5, crop_normalize.launches - k1) != want:
+            fail(f"predict_dataset (fused {f}) launched K5/K1 "
+                 f"{(fused_stem.launches - k5, crop_normalize.launches - k1)} times")
+        assigned[f] = constrained_predict(drained[f][0], plates, fx["plate_groups"], 0)
+    k5_launches = fused_stem.launches
+    ids = [r["id_code"] for r in rows]
+    if drained[True][1] != ids or drained[False][1] != ids:
+        fail("predict_dataset rows differ between the fused and unfused paths")
+    ds_gap = float(np.abs(drained[True][0] - drained[False][0]).max())
+    n_diff = int((assigned[True] != assigned[False]).sum())
+    print(f"predict_dataset over {len(rows)} test wells ({n_batches} batches): max|probs fused "
+          f"- unfused| {ds_gap:.4g}; plate-leak assignments that differ: {n_diff} of "
+          f"{len(rows)}; K5 launches on this path {k5_launches}")
+    if not math.isfinite(ds_gap) or ds_gap > limits["ds_gap"]:
+        fail("predict_dataset with the fused stem disagrees with the unfused path")
 
     # ---- 5. the card against the CPU ------------------------------------------
     phase("5 card against CPU: f32 predict logits; f32 train step against f64")
@@ -716,6 +933,66 @@ def main() -> int:
           f"{ev_ms:.3f} ms/batch CUDA events, {16 * 6 * 1e3 / ms_batch:.1f} views/s, "
           f"peak memory {peak / 2**30:.3f} GiB")
     device_profile(lambda: pstep(batch), 3, "predict steps", ev_ms)
+    del pstep
+
+    # K5 next to its bounds, its plain version (TF32 off) and the unfused stem
+    # as the folded predictor runs it: K1, the bf16 conv with bias, ReLU, pool
+    k5_times = {}
+    for label in ("val", "test"):
+        nv, crop = stem_cases[label]
+        size = crop or SRC
+        args = stem_args(label)
+        ms = cuda_ms(lambda: fused_stem(*args, torch.bfloat16), 20)
+        torch.backends.cudnn.allow_tf32 = False
+        plain_ms = cuda_ms(lambda: fused_stem_reference(*args, torch.bfloat16), 5)
+        torch.backends.cudnn.allow_tf32 = True
+        conv = torch.nn.Conv2d(6, 64, 7, 2, 3).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(stem_w)
+            conv.bias.copy_(stem_cb)
+        planes_v = stem_imgs[:nv].reshape(nv * 6, SRC, SRC)
+        scale_v, bias_v = stem_scale[:nv].reshape(-1), stem_bias[:nv].reshape(-1)
+
+        @torch.inference_mode()
+        def unfused():
+            views = crop_normalize(planes_v, scale_v, bias_v, size).reshape(nv, 6, size, size)
+            return F.max_pool2d(F.relu(conv(views)), 3, 2, 1)
+
+        unfused_ms = cuda_ms(unfused, 20)
+        moved, ops = k5_work(nv, size)
+        bnd = max(moved / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
+        k5_times[label] = (ms, plain_ms, bnd)
+        print(f"K5 {label} [{nv},6,{SRC}^2] -> {size}^2 -> [{nv},64,{stem_out_size(size)}^2] bf16: "
+              f"{ms:.4f} ms; bound {bnd:.4f} ms by operations ({ops / 1e9:.1f} GFLOP at bf16 "
+              f"tensor-core rate; bytes {moved / 1e6:.1f} MB = "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bnd / ms:.2f}% of it; the same "
+              f"operations at the f32 CUDA-core rate {ops / F32_FLOPS * 1e3:.4f} ms "
+              f"({100 * ops / F32_FLOPS * 1e3 / ms:.1f}% of it); plain {plain_ms:.4f} ms; "
+              f"unfused stem (K1 + cuDNN bf16 conv + ReLU + max pool) {unfused_ms:.4f} ms")
+    del conv, planes_v
+
+    # the eval and predict steps, fused and unfused, on the trained checkpoint
+    for name, steps, batch_, views in (("eval", evals, val_batch, B * G),
+                                       ("predict", preds, test_batch, B * 6)):
+        for f in (False, True):
+            for _ in range(3):
+                steps[f](batch_)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            iters = 20
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                steps[f](batch_)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3 / iters
+            ev = cuda_ms(lambda: steps[f](batch_), iters, warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{name} step {'fused K5 ' if f else 'unfused  '} bf16 B={B} "
+                  f"{views // B} views/well: {host:.3f} ms host clock, {ev:.3f} ms CUDA events, "
+                  f"{views * 1e3 / host:.1f} views/s, peak memory {peak / 2**30:.3f} GiB "
+                  f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB resident)")
+    device_profile(lambda: preds[True](test_batch), 3, "fused predict steps", ev)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
 
@@ -737,6 +1014,13 @@ def main() -> int:
             "max_abs_err": shear_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": "bytes", "library_ms": None,
         })
+    ms, plain_ms, bnd = k5_times["test"]
+    entries.append({
+        "name": "fused_stem", "route": "cuda", "source": "rxtpu_torch/csrc/fused_stem.cu",
+        "replaces": "rxtpu/ops/fused_stem.py:65", "launches": k5_launches,
+        "max_abs_err": k5_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+        "bound_by": "operations", "library_ms": None,
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

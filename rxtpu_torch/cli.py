@@ -64,7 +64,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="center-crop test images to N (default: full size)")
     p.add_argument("--tta", default="none", choices=["none", "flips", "dihedral"])
     p.add_argument("--tta-average", default="probs", choices=["probs", "logits"])
-    p.add_argument("--predict-scan-window", type=int, default=1)
+    p.add_argument("--predict-scan-window", type=int, default=1,
+                   help="rxtpu's scanned predict window: accepted and ignored, the "
+                        "port predicts one batch per step (the same numbers)")
     p.add_argument("--quantize", default="none", choices=["none", "int8"])
     p.add_argument("--calib-batches", type=int, default=2)
     p.add_argument("--calibrate", action="store_true",
@@ -103,8 +105,6 @@ def _not_ported(args) -> Optional[str]:
         return f"--quantize {args.quantize}"
     if args.assign_method == "greedy_jax":
         return "--assign-method greedy_jax"
-    if args.predict_scan_window > 1:
-        return "--predict-scan-window > 1"
     if args.distributed or args.model_parallel != 1:
         return "--distributed / --model-parallel (multi-device)"
     if not args.pack:

@@ -8,15 +8,25 @@ Eval BN is ``y = x*mul + add`` with ``mul = weight/sqrt(var+eps)`` and
   ``mul`` scales the kernel's output channels and ``add`` becomes its bias;
 - BN then Linear (the MLP head): ``fc(bn(x)) == x @ (W*mul).T + (W@add + b)``,
   ``mul`` scales the weight's input columns.
+
+``fold`` gives the eval and predict steps their twin and the op in front
+of it: K1, or with ``fused_stem`` the kernel K5 and a twin that takes the
+stem's maps (rxtpu's ``_make_fused_stem_apply``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from rxtpu_torch.models.twosites import TwoSitesNN
+from rxtpu_torch.ops.crop_norm import eval_batch_normalize
+from rxtpu_torch.ops.fused_stem import eval_batch_stem
+
+# raw batch (images uint8 [B, G, C, H, W], mean/std f32 [B, C]) -> the twin's input
+Front = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 EPS = 1e-5
 
@@ -56,11 +66,52 @@ def fold_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def foldable(model) -> bool:
+    """True when BN folding supports the model: a resnet backbone with the
+    mlp head (``rxtpu/infer/fold.py:96``)."""
+    return (isinstance(model, TwoSitesNN) and model.arch["backbone"].startswith("resnet")
+            and model.arch["head"] == "mlp")
+
+
+def _twin(model: TwoSitesNN, sd: Dict[str, torch.Tensor], stem_input: bool) -> TwoSitesNN:
+    folded = TwoSitesNN(**model.arch, folded=True, stem_input=stem_input)
+    folded.load_state_dict(sd)
+    device = next(model.parameters()).device
+    return folded.to(device).eval()
+
+
 @torch.no_grad()
 def fold_for_inference(model: TwoSitesNN) -> TwoSitesNN:
     """A ``folded=True`` twin of ``model`` (eval mode, same device) holding
     the folded weights."""
-    folded = TwoSitesNN(**model.arch, folded=True)
-    folded.load_state_dict(fold_state_dict(model.state_dict()))
-    device = next(model.parameters()).device
-    return folded.to(device).eval()
+    return _twin(model, fold_state_dict(model.state_dict()), stem_input=False)
+
+
+@torch.no_grad()
+def fold(model: TwoSitesNN, crop_size: Optional[int], dtype: torch.dtype,
+         fused_stem: bool = False) -> Tuple[TwoSitesNN, Front]:
+    """(twin, front) of the eval and predict steps: ``twin(front(images,
+    mean, std))`` are the logits of a raw batch.
+
+    Unfused, ``front`` is K1 (bf16 views, center-cropped to ``crop_size``)
+    and ``twin`` the folded model in ``dtype``. With ``fused_stem``, ``front``
+    is K5 (the stem's maps in ``dtype``) and ``twin`` the folded model with
+    ``stem_input=True``. K5 takes the stem's folded bias in f32, as rxtpu
+    passes it: from the folded state dict, before the twin's cast rounds it.
+    Its weight is cast to bf16 here once, as the kernel reads it. Raises
+    ``ValueError`` with ``fused_stem`` for a model that does not fold
+    (``rxtpu/train/step.py:190``).
+    """
+    if not fused_stem:
+        return (fold_for_inference(model).to(dtype),
+                functools.partial(eval_batch_normalize, crop_size=crop_size))
+    if not foldable(model):
+        raise ValueError("fused_stem=True needs a BN-foldable model (resnet backbone + "
+                         f"mlp head); got {type(model).__name__} "
+                         f"{getattr(model, 'arch', None)}")
+    sd = fold_state_dict(model.state_dict())
+    front = functools.partial(eval_batch_stem,
+                              weight=sd["backbone.conv_init.weight"].to(torch.bfloat16),
+                              conv_bias=sd["backbone.conv_init.bias"], crop_size=crop_size,
+                              out_dtype=dtype)
+    return _twin(model, sd, stem_input=True).to(dtype), front

@@ -4,8 +4,10 @@
 One predict step: raw uint8 batch -> K1 normalize (bf16 views, full size
 unless ``crop_size``) -> the BN-folded ``TwoSitesNN`` in the compute dtype ->
 f32 softmax, optionally averaged over dihedral TTA variants (probabilities
-or logits). ``predict_dataset`` drains a test ``Pipeline`` and drops the
-padding rows by their empty ``id_codes``.
+or logits). With ``fused_stem=True`` the kernel K5 runs crop, normalize and
+the whole stem on the raw batch and the twin goes on from the stem's maps
+(no TTA: its transforms act on the views). ``predict_dataset`` drains a
+test ``Pipeline`` and drops the padding rows by their empty ``id_codes``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ import numpy as np
 import torch
 
 from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
-from rxtpu_torch.infer.fold import fold_for_inference
+from rxtpu_torch.infer.fold import fold
 from rxtpu_torch.models.twosites import TwoSitesNN
-from rxtpu_torch.ops.crop_norm import eval_batch_normalize
 
 View = Callable[[torch.Tensor], torch.Tensor]
 
@@ -53,24 +54,27 @@ class Predictor:
 
     ``model`` is an unfolded ``TwoSitesNN`` with f32 parameters; the twin
     is folded in f32 and then cast to ``dtype`` (bf16 compute with f32
-    parameters, as rxtpu).
+    parameters, as rxtpu). ``fused_stem=True`` raises ``ValueError`` with
+    TTA transforms (``rxtpu/train/step.py:302``) or a model that does not
+    fold.
     """
 
     def __init__(self, model: TwoSitesNN, crop_size: Optional[int] = None,
                  tta: str = "none", average: str = "probs",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, fused_stem: bool = False):
         if average not in ("probs", "logits"):
             raise ValueError(f"unknown tta average mode {average!r}")
-        self.net = fold_for_inference(model).to(dtype)
-        self.crop_size = crop_size
+        if fused_stem and tta != "none":
+            raise ValueError("TTA transforms need materialized views; "
+                             "fused_stem=True is incompatible")
         self.transforms = tta_transforms(tta)
+        self.net, self.front = fold(model, crop_size, dtype, fused_stem)
         self.average = average
 
     @torch.inference_mode()
     def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """{images uint8 [B,G,C,H,W], mean/std f32 [B,C]} -> f32 probs [B, classes]."""
-        views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"],
-                                     self.crop_size)
+        views = self.front(batch["images"], batch["mean"], batch["std"])
         acc = None
         for t in self.transforms:
             logits = self.net(t(views)).float()

@@ -11,6 +11,9 @@ eval mode. ``folded=True`` is the inference variant that consumes BN-folded
 weights (``rxtpu_torch.infer.fold``): convs carry a bias, norms are gone.
 The 3x3 convs pad (1,1) explicitly, the stem is a 7x7/2 conv padded 3, then
 a 3x3/2 max pool padded 1, and features are the global mean.
+``stem_input=True`` takes the stem's output (the fused stem kernel K5,
+``rxtpu_torch.ops.fused_stem``) and skips the stem's ops; ``conv_init`` and
+``bn_init`` stay in the state dict, so checkpoints and folding map as before.
 
 Compute dtype: the input is cast to ``compute_dtype`` (the autocast dtype
 inside ``torch.autocast``, else the parameters' dtype). bf16 training runs
@@ -117,8 +120,9 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
                  num_filters: int = 64, in_channels: int = NB_CHANNELS,
-                 folded: bool = False):
+                 folded: bool = False, stem_input: bool = False):
         super().__init__()
+        self.stem_input = stem_input
         self.conv_init = nn.Conv2d(in_channels, num_filters, 7, 2, 3, bias=folded)
         self.bn_init = _norm_factory(folded)(num_filters)
         self.block_names = []
@@ -135,8 +139,9 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(compute_dtype(self.conv_init.weight))
-        x = F.relu(self.bn_init(self.conv_init(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        if not self.stem_input:
+            x = F.relu(self.bn_init(self.conv_init(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x.mean(dim=(2, 3))
@@ -151,12 +156,12 @@ _ARCHS = {
 }
 
 
-def make_backbone(arch: str, folded: bool = False) -> ResNet:
+def make_backbone(arch: str, folded: bool = False, stem_input: bool = False) -> ResNet:
     if arch not in _ARCHS:
         raise ValueError(
             f"backbone {arch!r} is not ported (ported: {sorted(_ARCHS)})")
     stage_sizes, block_cls = _ARCHS[arch]
-    return ResNet(stage_sizes, block_cls, folded=folded)
+    return ResNet(stage_sizes, block_cls, folded=folded, stem_input=stem_input)
 
 
 @torch.no_grad()

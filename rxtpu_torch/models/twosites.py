@@ -6,7 +6,8 @@ for one backbone pass; features regroup as [B, 3, G/3, F] and are averaged
 over each third of G (view order ``[img_s1, img_s2, neg_s1, neg_s2, pos_s1,
 pos_s2]`` at G=6, the two-site test layout), then concatenate to [B, 3F]
 for the head. ``set_dropout_generator`` points the head's dropout at a
-generator (the train step's per-step generator).
+generator (the train step's per-step generator). ``stem_input=True``: x
+holds the stem's output maps ``[B, G, 64, Po, Po]`` (the fused stem K5).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ class TwoSitesNN(nn.Module):
     def __init__(self, backbone: str = "resnet50", nb_classes: int = 1108,
                  size_features: int = 1024, dropout: float = 0.3,
                  head: str = "mlp", control_calibration: bool = False,
-                 folded: bool = False):
+                 folded: bool = False, stem_input: bool = False):
         super().__init__()
         if head != "mlp":
             raise NotImplementedError(f"the {head!r} head is not ported yet")
@@ -32,7 +33,7 @@ class TwoSitesNN(nn.Module):
                          size_features=size_features, dropout=dropout,
                          head=head, control_calibration=control_calibration)
         self.control_calibration = control_calibration
-        self.backbone = make_backbone(backbone, folded=folded)
+        self.backbone = make_backbone(backbone, folded=folded, stem_input=stem_input)
         self.head = MLPHead(3 * self.backbone.num_features, nb_classes,
                             size_features, dropout, folded=folded)
 

@@ -1,6 +1,9 @@
 from rxtpu_torch.ops.crop_norm import (
     crop_normalize, crop_normalize_reference, eval_batch_normalize,
 )
+from rxtpu_torch.ops.fused_stem import (
+    eval_batch_stem, fused_stem, fused_stem_reference, stem_out_size,
+)
 from rxtpu_torch.ops.shear import (
     apply_affine_shear, augment_batch_shear, decompose_angle, dihedral, dihedral_bits,
     rotate_crop_normalize, rotate_crop_normalize_fused, shear_pass, shear_pass_finish,
@@ -41,7 +44,8 @@ __all__ = [
     "apply_affine_shear", "apply_affine_warp", "augment_batch", "augment_batch_shear",
     "augment_passthrough", "center_crop_normalize_reference", "crop_normalize",
     "crop_normalize_reference", "decompose_angle", "dihedral", "dihedral_bits",
-    "eval_batch_normalize", "get_augment_fn", "reflect101", "rotate_crop_normalize",
+    "eval_batch_normalize", "eval_batch_stem", "fused_stem", "fused_stem_reference",
+    "get_augment_fn", "reflect101", "rotate_crop_normalize",
     "rotate_crop_normalize_fused", "sample_affine_params", "shear_pass",
-    "shear_pass_finish", "shear_pass_rows",
+    "shear_pass_finish", "shear_pass_rows", "stem_out_size",
 ]

@@ -11,7 +11,10 @@ gradients) and the ``lr`` this step used, as 0-dim tensors on the device.
 
 The eval step: K1 center crop + normalize (``eval_batch_normalize``, bf16
 views), the BN-folded twin in the compute dtype, then exact sums
-``loss_sum``, ``correct`` and ``count`` over the valid rows.
+``loss_sum``, ``correct`` and ``count`` over the valid rows. With
+``fused_stem=True`` the kernel K5 runs crop, normalize and the whole stem on
+the raw batch, and the twin goes on from the stem's maps
+(``rxtpu_torch.infer.fold.fold``).
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rxtpu_torch.infer.fold import fold_for_inference
-from rxtpu_torch.ops import eval_batch_normalize, get_augment_fn
+from rxtpu_torch.infer.fold import fold
+from rxtpu_torch.ops import get_augment_fn
 from rxtpu_torch.train.optim import head_only_mask, make_optimizer, masked_grads_with_wd
 
 Batch = Dict[str, torch.Tensor]
@@ -125,18 +128,21 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
 
 class EvalStep:
     """The eval step over the BN-folded twin of ``model`` as it is now; build
-    a new one after the weights change."""
+    a new one after the weights change. ``fused_stem=True`` needs a foldable
+    model (``ValueError`` otherwise)."""
 
     def __init__(self, model: torch.nn.Module, crop_size: int,
-                 dtype: torch.dtype = torch.bfloat16):
-        self.net = fold_for_inference(model).to(dtype)
-        self.crop_size = crop_size
+                 dtype: torch.dtype = torch.bfloat16, fused_stem: bool = False):
+        self.net, self.front = fold(model, crop_size, dtype, fused_stem)
+
+    @torch.inference_mode()
+    def logits(self, batch: Batch) -> torch.Tensor:
+        """f32 logits [B, classes] of a raw batch."""
+        return self.net(self.front(batch["images"], batch["mean"], batch["std"])).float()
 
     @torch.inference_mode()
     def __call__(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"],
-                                     self.crop_size)
-        logits = self.net(views).float()
+        logits = self.logits(batch)
         labels = batch["labels"].long()
         valid = batch.get("valid")
         if valid is None:

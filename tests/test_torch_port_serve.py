@@ -11,7 +11,7 @@
   ``chip_smoke.py`` refuses to run without a card or without the package;
 - the slice as a whole: rxtpu's CLI trains a tiny resnet18 checkpoint on a
   raw pack, then both CLIs run the test phase on it in f32 and must write
-  the same submission, byte for byte.
+  the same submission, byte for byte, also with ``--predict-scan-window 2``.
 """
 
 from __future__ import annotations
@@ -280,6 +280,27 @@ def test_slice_submission_identical_to_rxtpu(trained_root, monkeypatch):
     assert len(sub) == len(manifest["test"]) == 8
     pg = manifest["plate_groups"]
     assert all(pg[r.sirna, 0] == int(r.id_code.split("_")[1]) for r in sub.itertuples())
+
+
+def test_slice_scan_window_submission_identical(trained_root, monkeypatch):
+    """``--predict-scan-window 2``: rxtpu's CLI predicts windows of 2 batches,
+    the port's takes the flag and predicts one batch per step; both write
+    the submission of rxtpu's window 1, byte for byte."""
+    root, _ = trained_root
+    monkeypatch.chdir(root)
+    with open("submission_slice.csv", "rb") as f:
+        want = f.read()  # rxtpu, window 1
+    for out in ("rx_scan", "port_scan"):
+        os.makedirs(out, exist_ok=True)
+    with monkeypatch.context() as mp:
+        mp.setattr(rx_cli, "resolve_config", _f32(rx_cli.resolve_config))
+        assert rx_cli.main(ARGV + ["--predict-scan-window", "2", "--out-dir", "rx_scan"]) == 0
+    monkeypatch.setattr(port_cli, "resolve_config", _f32(port_cli.resolve_config))
+    assert port_cli.main(ARGV + ["--device", "cpu", "--predict-scan-window", "2",
+                                 "--out-dir", "port_scan"]) == 0
+    for out in ("rx_scan", "port_scan"):
+        with open(os.path.join(out, "submission_slice.csv"), "rb") as f:
+            assert f.read() == want, out
 
 
 def test_slice_probs_do_not_depend_on_batch_size(trained_root):
