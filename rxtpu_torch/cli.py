@@ -109,8 +109,6 @@ def _not_ported(args) -> Optional[str]:
         return "--distributed / --model-parallel (multi-device)"
     if not args.pack:
         return "JPEG/PNG input without --pack (the native decoder)"
-    if args.fuse_blocks == "on":
-        return "--fuse-blocks on (the fused bottleneck kernels K6/K7)"
     if args.checkpoint_backend != "pickle":
         return f"--checkpoint-backend {args.checkpoint_backend}"
     if args.profile:

@@ -74,7 +74,9 @@ def foldable(model) -> bool:
 
 
 def _twin(model: TwoSitesNN, sd: Dict[str, torch.Tensor], stem_input: bool) -> TwoSitesNN:
-    folded = TwoSitesNN(**model.arch, folded=True, stem_input=stem_input)
+    # the twin is eval-only: never fused (rxtpu/train/step.py:162,195)
+    folded = TwoSitesNN(**{**model.arch, "fuse_blocks": False}, folded=True,
+                        stem_input=stem_input)
     folded.load_state_dict(sd)
     device = next(model.parameters()).device
     return folded.to(device).eval()

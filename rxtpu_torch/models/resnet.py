@@ -14,6 +14,12 @@ a 3x3/2 max pool padded 1, and features are the global mean.
 ``stem_input=True`` takes the stem's output (the fused stem kernel K5,
 ``rxtpu_torch.ops.fused_stem``) and skips the stem's ops; ``conv_init`` and
 ``bn_init`` stay in the state dict, so checkpoints and folding map as before.
+``fuse_blocks=True`` runs, in train mode, each run of consecutive stride-1
+bottleneck blocks through the fused kernels K6/K7
+(``rxtpu_torch.models.fused``) on a channels-last bf16 ``[N, H*W, C]``
+slab, converted once at the start of the run and back at its end
+(``rxtpu/models/resnet.py:250-291``); strided and basic blocks, and eval
+mode, keep the standard composition.
 
 Compute dtype: the input is cast to ``compute_dtype`` (the autocast dtype
 inside ``torch.autocast``, else the parameters' dtype). bf16 training runs
@@ -39,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rxtpu_torch.config import NB_CHANNELS
+from rxtpu_torch.models.fused import fused_bottleneck
 from rxtpu_torch.models.norm import BatchNorm
 
 
@@ -120,9 +127,11 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
                  num_filters: int = 64, in_channels: int = NB_CHANNELS,
-                 folded: bool = False, stem_input: bool = False):
+                 folded: bool = False, stem_input: bool = False,
+                 fuse_blocks: bool = False):
         super().__init__()
         self.stem_input = stem_input
+        self.fuse_blocks = fuse_blocks
         self.conv_init = nn.Conv2d(in_channels, num_filters, 7, 2, 3, bias=folded)
         self.bn_init = _norm_factory(folded)(num_filters)
         self.block_names = []
@@ -142,9 +151,28 @@ class ResNet(nn.Module):
         if not self.stem_input:
             x = F.relu(self.bn_init(self.conv_init(x)))
             x = F.max_pool2d(x, 3, 2, 1)
+        fuse = self.fuse_blocks and self.training
+        flat = None  # x as [N, H*W, C] bf16 inside a run of fused blocks
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if fuse and isinstance(block, BottleneckBlock) and block.Conv_1.stride == (1, 1):
+                if flat is None:
+                    n, c, h, w = x.shape
+                    dtype = x.dtype
+                    flat = x.permute(0, 2, 3, 1).reshape(n, h * w, c).to(torch.bfloat16)
+                flat = fused_bottleneck(block, flat, h, w)
+                continue
+            if flat is not None:
+                x, flat = _to_nchw(flat, h, w, dtype), None
+            x = block(x)
+        if flat is not None:
+            x = _to_nchw(flat, h, w, dtype)
         return x.mean(dim=(2, 3))
+
+
+def _to_nchw(flat: torch.Tensor, height: int, width: int, dtype: torch.dtype) -> torch.Tensor:
+    n, _, c = flat.shape
+    return flat.reshape(n, height, width, c).permute(0, 3, 1, 2).to(dtype).contiguous()
 
 
 _ARCHS = {
@@ -156,12 +184,14 @@ _ARCHS = {
 }
 
 
-def make_backbone(arch: str, folded: bool = False, stem_input: bool = False) -> ResNet:
+def make_backbone(arch: str, folded: bool = False, stem_input: bool = False,
+                  fuse_blocks: bool = False) -> ResNet:
     if arch not in _ARCHS:
         raise ValueError(
             f"backbone {arch!r} is not ported (ported: {sorted(_ARCHS)})")
     stage_sizes, block_cls = _ARCHS[arch]
-    return ResNet(stage_sizes, block_cls, folded=folded, stem_input=stem_input)
+    return ResNet(stage_sizes, block_cls, folded=folded, stem_input=stem_input,
+                  fuse_blocks=fuse_blocks)
 
 
 @torch.no_grad()

@@ -8,6 +8,8 @@ pos_s2]`` at G=6, the two-site test layout), then concatenate to [B, 3F]
 for the head. ``set_dropout_generator`` points the head's dropout at a
 generator (the train step's per-step generator). ``stem_input=True``: x
 holds the stem's output maps ``[B, G, 64, Po, Po]`` (the fused stem K5).
+``fuse_blocks=True``: the backbone's stride-1 bottlenecks run fused in train
+mode (K6/K7, ``rxtpu_torch.models.fused``).
 """
 
 from __future__ import annotations
@@ -24,16 +26,19 @@ class TwoSitesNN(nn.Module):
     def __init__(self, backbone: str = "resnet50", nb_classes: int = 1108,
                  size_features: int = 1024, dropout: float = 0.3,
                  head: str = "mlp", control_calibration: bool = False,
-                 folded: bool = False, stem_input: bool = False):
+                 folded: bool = False, stem_input: bool = False,
+                 fuse_blocks: bool = False):
         super().__init__()
         if head != "mlp":
             raise NotImplementedError(f"the {head!r} head is not ported yet")
         # constructor arguments, so fold_for_inference can build the twin
         self.arch = dict(backbone=backbone, nb_classes=nb_classes,
                          size_features=size_features, dropout=dropout,
-                         head=head, control_calibration=control_calibration)
+                         head=head, control_calibration=control_calibration,
+                         fuse_blocks=fuse_blocks)
         self.control_calibration = control_calibration
-        self.backbone = make_backbone(backbone, folded=folded, stem_input=stem_input)
+        self.backbone = make_backbone(backbone, folded=folded, stem_input=stem_input,
+                                      fuse_blocks=fuse_blocks)
         self.head = MLPHead(3 * self.backbone.num_features, nb_classes,
                             size_features, dropout, folded=folded)
 

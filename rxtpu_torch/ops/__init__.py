@@ -1,6 +1,10 @@
 from rxtpu_torch.ops.crop_norm import (
     crop_normalize, crop_normalize_reference, eval_batch_normalize,
 )
+from rxtpu_torch.ops.fused_block import (
+    BottleneckFused, bottleneck_fused, conv1x1_to_mat, conv3x3_to_taps, mat_to_conv1x1,
+    taps_to_conv3x3,
+)
 from rxtpu_torch.ops.fused_stem import (
     eval_batch_stem, fused_stem, fused_stem_reference, stem_out_size,
 )
@@ -41,11 +45,12 @@ def get_augment_fn(backend: str = "shear"):
 
 
 __all__ = [
-    "apply_affine_shear", "apply_affine_warp", "augment_batch", "augment_batch_shear",
-    "augment_passthrough", "center_crop_normalize_reference", "crop_normalize",
+    "BottleneckFused", "apply_affine_shear", "apply_affine_warp", "augment_batch",
+    "augment_batch_shear", "augment_passthrough", "bottleneck_fused",
+    "center_crop_normalize_reference", "conv1x1_to_mat", "conv3x3_to_taps", "crop_normalize",
     "crop_normalize_reference", "decompose_angle", "dihedral", "dihedral_bits",
     "eval_batch_normalize", "eval_batch_stem", "fused_stem", "fused_stem_reference",
-    "get_augment_fn", "reflect101", "rotate_crop_normalize",
+    "get_augment_fn", "mat_to_conv1x1", "reflect101", "rotate_crop_normalize",
     "rotate_crop_normalize_fused", "sample_affine_params", "shear_pass",
-    "shear_pass_finish", "shear_pass_rows", "stem_out_size",
+    "shear_pass_finish", "shear_pass_rows", "stem_out_size", "taps_to_conv3x3",
 ]

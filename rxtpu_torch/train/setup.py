@@ -14,13 +14,11 @@ from rxtpu_torch.train.step import TrainState
 
 
 def build_model(cfg: Config) -> TwoSitesNN:
-    if cfg.model.fuse_blocks:
-        raise NotImplementedError("--fuse-blocks on (the fused bottleneck, K6/K7) "
-                                  "is not ported yet")
     return TwoSitesNN(
         backbone=cfg.model.backbone, nb_classes=cfg.model.nb_classes,
         size_features=cfg.model.size_features, dropout=cfg.model.dropout,
         head=cfg.model.head, control_calibration=cfg.model.control_calibration,
+        fuse_blocks=bool(cfg.model.fuse_blocks),  # None (auto) is off, as in rxtpu
     )
 
 

@@ -287,8 +287,7 @@ def test_port_cli_refuses_what_is_not_ported(train_fixture, tmp_path, monkeypatc
     fx, paths = train_fixture
     monkeypatch.chdir(tmp_path)
     argv = ARGV + paths
-    for flag in (["--fuse-blocks", "on"], ["--checkpoint-backend", "orbax"], ["--profile"],
-                 ["--debug"]):
+    for flag in (["--checkpoint-backend", "orbax"], ["--profile"], ["--debug"]):
         with pytest.raises(SystemExit, match="not ported"):
             port_cli.main(argv + flag)
     with pytest.raises(SystemExit, match="patience"):
