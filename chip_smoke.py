@@ -17,12 +17,14 @@ Phases, each ending the run with a non-zero exit when it fails:
    shape [48, 6, 512^2] cropped to 364, the test shape [96, 6, 512^2]
    uncropped and an odd 363 crop, TF32 off for the plain version: bf16
    within one ulp, f32 within 1e-5 of max|out|; K6/K7 (fused_block, the
-   eight bodies of the fused bottleneck) at ResNet-50's stage-1 projection,
-   stage-1 and stage-4 block shapes (48 views): bf16 outputs within two
-   ulps of max|plain| with at most 1e-3 of their elements more than one ulp
-   of their own value apart (f32 sum order alone differs), f32 sums and
-   weight gradients within 3e-3 of max|plain|, and c3's sums bit-equal
-   over repeated launches;
+   eight bodies of the fused bottleneck) at ResNet-50's five block shapes
+   (48 views) and two ragged ones (3 views of 5x7, less than one row
+   tile): bf16 outputs within two ulps of max|plain| with at most 1e-3 of
+   their elements more than one ulp of their own value apart (f32 sum order
+   alone differs), f32 sums and weight gradients within 3e-3 of max|plain|,
+   c3's sums and K7.2's and K7.4's outputs bit-equal over repeated
+   launches, and K7.2's dc3 bit-equal to the BN3 backward of c3 as K6.4
+   computes it;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -60,8 +62,13 @@ Phases, each ending the run with a non-zero exit when it fails:
    the fused predict step; the train step with ``--fuse-blocks on`` beside
    the unfused one (ms, views/s, memory, device time by kernel), each K6/K7
    body at the 13 blocks' shapes of a step beside its bound, its plain
-   version and ``torch.matmul`` of its largest product, and the blocks
-   fused against the unfused composition, forward and backward.
+   version and ``torch.matmul`` of its largest product, each launch of
+   K7.2 and K7.4 timed alone, and the blocks fused against the unfused
+   composition, forward and backward.
+
+``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
+phase 2's K6/K7 checks and the timing of K7.2's and K7.4's launches, per
+block shape and per train step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -76,6 +83,7 @@ import csv
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -205,21 +213,26 @@ FB_LINES = {"k1": 257, "k2": 327, "k3": 365, "k4": 395, "b1": 518, "b2": 567, "b
 FB_SHAPES = (("stage1 proj", 91, 64, 64, True, 1), ("stage1", 91, 256, 64, False, 2),
              ("stage2", 46, 512, 128, False, 3), ("stage3", 23, 1024, 256, False, 5),
              ("stage4", 12, 2048, 512, False, 2))
+# ragged blocks (3 views of 5x7: 105 rows, less than one 128-row tile):
+# (label, height, width, C, F, projection)
+FB_RAGGED = (("ragged proj", 5, 7, 128, 64, True), ("ragged", 5, 7, 256, 64, False))
 FB_BF16_TOP_ULPS = 2  # bf16 outputs: max|kernel - plain| <= this many ulps of max|plain|,
 FB_BF16_SHARE = 1e-3  # and at most this share more than one ulp of their own value apart
 FB_F32_REL = 3e-3     # f32 sums and weight gradients: max|kernel - plain| / max|plain|
 
 
-def fb_operands(v, plane, c, f, proj, seed, dev):
-    """Every body's operands for one block, as the forward and backward
-    chain makes them (the plain versions, on the card): ReLU'd bf16 input,
-    He-scaled weights, BN affines 1 + 0.4 N(0,1) / 0.4 N(0,1)."""
+def fb_operands(v, plane, c, f, proj, seed, dev, width=None):
+    """Every body's operands for one block of ``v`` views of ``plane`` x
+    ``width`` (default square), as the forward and backward chain makes them
+    (the plain versions, on the card): ReLU'd bf16 input, He-scaled weights,
+    BN affines 1 + 0.4 N(0,1) / 0.4 N(0,1)."""
     import torch
     from rxtpu_torch.ops import fused_block as fb
 
     bf = torch.bfloat16
+    width = width or plane
     g = torch.Generator(device=dev).manual_seed(seed)
-    r, cnt = v * plane * plane, float(v * plane * plane)
+    r, cnt = v * plane * width, float(v * plane * width)
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
@@ -234,7 +247,7 @@ def fb_operands(v, plane, c, f, proj, seed, dev):
     c1, s1, q1, *spq = fb.k1_reference(x, w1, wp)
     f1 = fb.finalize(s1, q1, *gb["1"], cnt, 1e-5)
     fp = fb.finalize(*spq, *gb["p"], cnt, 1e-5) if proj else None
-    c2, s2, q2 = fb.k2_reference(c1, f1.scale, f1.shift, w2, plane, plane)
+    c2, s2, q2 = fb.k2_reference(c1, f1.scale, f1.shift, w2, plane, width)
     f2 = fb.finalize(s2, q2, *gb["2"], cnt, 1e-5)
     f3 = fb.finalize(*fb.k3_reference(c2, f2.scale, f2.shift, w3), *gb["3"], cnt, 1e-5)
     pa = (wp, fp.scale, fp.shift) if proj else ()
@@ -246,10 +259,10 @@ def fb_operands(v, plane, c, f, proj, seed, dev):
            f2.mean, f2.inv)
     g2, _, s2a, s2b = fb.b2_reference(*b2a)
     b3a = (g2, c1, c2, f1.scale, f1.shift, f2.scale, s2a / cnt, s2b / cnt, f2.mean, f2.inv, w2,
-           f1.mean, f1.inv, plane, plane)
+           f1.mean, f1.inv, plane, width)
     g1, _, s1a, s1b = fb.b3_reference(*b3a)
     pc = (wp, fp.scale, s3a / cnt, spb[0] / cnt, fp.mean, fp.inv) if proj else ()
-    return {"k1": (x, w1, wp), "k2": (c1, f1.scale, f1.shift, w2, plane, plane),
+    return {"k1": (x, w1, wp), "k2": (c1, f1.scale, f1.shift, w2, plane, width),
             "k3": (c2, f2.scale, f2.shift, w3),
             "k4": (c2, x, f2.scale, f2.shift, w3, f3.scale, f3.shift, *pa),
             "b1": (dy, y, c2, f2.scale, f2.shift, w3, f3.mean, f3.inv, *pb),
@@ -336,6 +349,157 @@ def fb_gap(out, ref):
     return err, f"f32 max {err:.4g} = {rel:.3g} of max|plain| {top:.4g}", rel <= FB_F32_REL
 
 
+def fb_c3_check(fb, args):
+    """K7.2's recomputed c3 bit-equal to K6.4's: dc3 from K7.2's dc3 launch
+    alone against the BN3 backward (plain, f32 on the card) of c3 as K6.4
+    computes it, ``k4(scale 1) - k4(scale -1)`` with shift 0 and a zero
+    residual (exact in bf16)."""
+    import torch
+
+    dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2 = args
+    dc3 = torch.empty_like(dy)
+    fb._gemm(fb._BN_RELU, fb._BN_BACKWARD, fb._a(c2, scale=sc2, shift=sh2), w3, c2.shape[0],
+             c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3, e_inv=i3, e_k=k3, e_da=d3a,
+             e_db=d3b)
+    one, zero, res = torch.ones_like(m3), torch.zeros_like(m3), torch.zeros_like(dy)
+    c3 = (fb.k4(c2, res, sc2, sh2, w3, one, zero).float()
+          - fb.k4(c2, res, sc2, sh2, w3, -one, zero).float())
+    want = fb._bn_backward(fb._g3(dy, y), fb._xhat(c3, m3, i3), k3, d3a, d3b)
+    return torch.equal(dc3, want)
+
+
+def fb_launch_parts(fb, name, args):
+    """The launches of body ``b2`` or ``b4`` on ``args``, as its wrapper
+    makes them, each as (label, fn): a GEMM or weight gradient with the
+    reductions of its sums, the BN backward, and where the wrapper
+    transposes a weight (wrappers without ``_WT_PAIRS``, which copied the
+    transposed weights per call) the transpose."""
+    import torch
+
+    wt = hasattr(fb, "_WT_PAIRS")  # the GEMMs read the weights as stored
+    if name == "b2":
+        dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2 = args
+        rows, f = c2.shape
+        dc3, g2 = torch.empty_like(dy), torch.empty_like(c2)
+        w3t = w3 if wt else w3.t().contiguous()
+        a2 = fb._a(c2, scale=sc2, shift=sh2)
+        parts = [("dc3 gemm", lambda: fb._gemm(fb._BN_RELU, fb._BN_BACKWARD, a2, w3, rows,
+                                               c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3,
+                                               e_inv=i3, e_k=k3, e_da=d3a, e_db=d3b))]
+        if not wt:
+            parts.append(("w3 transpose", lambda: w3.t().contiguous()))
+        parts.append(("g2 gemm+sums", lambda: fb._gemm(fb._STORED, fb._RELU_GRAD, fb._a(dc3), w3t,
+                                                       rows, c2.device, out=g2, aux0=c2,
+                                                       e_scale=sc2, e_shift=sh2, e_mean=m2,
+                                                       e_inv=i2)))
+        parts.append(("dw3 wgrad", lambda: fb._wgrad(fb._BN_RELU, a2, f, dc3, w3.shape[1], rows)))
+        return parts
+    g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, *proj = args
+    rows, c = x.shape
+    f = c1.shape[1]
+    wp = proj[0] if proj else None
+    n4 = wp.shape[1] if proj else 0
+    dc = torch.empty((rows, f + n4), dtype=torch.bfloat16, device=x.device)
+    dx = torch.empty_like(x)
+
+    def transpose():
+        return torch.cat([w1.t(), wp.t()]).contiguous() if proj else w1.t().contiguous()
+
+    parts = [("dc1 bn_backward", lambda: fb._bn_bwd(g1, c1, k1, d1a, d1b, m1, i1, dc))]
+    if proj:
+        _, kp, dpa, dpb, mp, ip = proj
+        parts.append(("dcp gemm", lambda: fb._gemm(
+            fb._STORED, fb._BN_BACKWARD, fb._a(x), wp, rows, x.device, out=dc, out_col=f,
+            aux0=dy, aux1=y, e_mean=mp, e_inv=ip, e_k=kp, e_da=dpa, e_db=dpb)))
+    if wt:
+        parts.append(("dx gemm", lambda: fb._gemm(fb._STORED, fb._INPUT_GRAD, fb._a(dc), w1, rows,
+                                                  x.device, w2=wp, out=dx, aux0=dy, aux1=y,
+                                                  add_g3=not proj)))
+    else:
+        w_t = transpose()
+        parts.append(("w transpose", transpose))
+        parts.append(("dx gemm", lambda: fb._gemm(fb._STORED, fb._INPUT_GRAD, fb._a(dc), w_t,
+                                                  rows, x.device, out=dx, aux0=dy, aux1=y,
+                                                  add_g3=not proj)))
+    parts.append(("dw1 wgrad", lambda: fb._wgrad(fb._STORED, fb._a(x), c, dc, f, rows)))
+    if proj:
+        parts.append(("dwp wgrad", lambda: fb._wgrad(fb._STORED, fb._a(x), c, dc, n4, rows,
+                                                     d_col=f)))
+    return parts
+
+
+def fb_phase2(dev):
+    """Phase 2's K6/K7 checks: every body against its plain version at the
+    five block shapes and the ragged ones, the repeated launches, K7.2's c3;
+    returns max|kernel - plain| per body."""
+    import torch
+    from rxtpu_torch.ops import fused_block as fb
+
+    phase(f"2 K6/K7 fused_block bodies against their plain versions (bf16 within "
+          f"{FB_BF16_TOP_ULPS} ulps of max|plain|, at most {FB_BF16_SHARE:g} of them more than "
+          f"one ulp off; f32 within {FB_F32_REL:g} of max|plain|)")
+    fb_bodies = dict(zip(FB_NAMES, fb.BODIES))
+    fb_err = dict.fromkeys(FB_NAMES, 0.0)
+    shapes = [(label, B * G, plane, plane, c, f, proj) for label, plane, c, f, proj, _ in FB_SHAPES]
+    shapes += [(label, 3, fh, fw, c, f, proj) for label, fh, fw, c, f, proj in FB_RAGGED]
+    for label, fv, fh, fw, c, f, proj in shapes:
+        ops = fb_operands(fv, fh, c, f, proj, 7, dev, width=fw)
+        size = f"{fh}^2" if fh == fw else f"{fh}x{fw}"
+        for name in FB_NAMES:
+            out = fb_bodies[name](*ops[name])
+            ref = getattr(fb, f"{name}_reference")(*ops[name])
+            torch.cuda.synchronize()
+            out = out if isinstance(out, tuple) else (out,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for i, (o, r) in enumerate(zip(out, ref)):
+                err, text, ok = fb_gap(o, r)
+                fb_err[name] = max(fb_err[name], err)
+                print(f"{name} {label:11s} V={fv} {size} C={c} F={f} out[{i}] "
+                      f"{tuple(o.shape)}: {text}")
+                if not ok:
+                    fail(f"fused_block {name} differs from its plain version ({label}, out {i})")
+        again = fb.k3(*ops["k3"])
+        if not all(torch.equal(a, b) for a, b in zip(fb.k3(*ops["k3"]), again)):
+            fail(f"the c3 sums of k3 differ between two launches ({label})")
+        for name in ("b2", "b4"):
+            first, second = fb_bodies[name](*ops[name]), fb_bodies[name](*ops[name])
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                fail(f"fused_block {name} differs between two launches ({label})")
+        if not fb_c3_check(fb, ops["b2"]):
+            fail(f"K7.2's dc3 is not the BN3 backward of K6.4's c3, bit for bit ({label})")
+        del ops, out, ref, again, first, second
+    print("c3's sums, b2's and b4's outputs bit-equal over repeated launches at each shape "
+          "(deterministic reductions); K7.2's dc3 bit-equal to the BN3 backward of K6.4's c3")
+    return fb_err
+
+
+def fb_launch_breakdown(dev):
+    """Each launch of K7.2 and K7.4 by CUDA events at the five block shapes,
+    and per train step (each shape times its blocks per step); returns
+    ``{body: {label: ms per step}}``."""
+    from rxtpu_torch.ops import fused_block as fb
+
+    per_step = {"b2": {}, "b4": {}}
+    for label, plane, c, f, proj, mult in FB_SHAPES:
+        ops = fb_operands(B * G, plane, c, f, proj, 8, dev)
+        for name in ("b2", "b4"):
+            parts = fb_launch_parts(fb, name, ops[name])
+            for part, fn in parts:
+                fn()  # dc3 / dc before the launches that read them
+            times = [(part, cuda_ms(fn, 10)) for part, fn in parts]
+            whole = cuda_ms(lambda: getattr(fb, name)(*ops[name]), 10)
+            print(f"{name} launches {label:11s} R={B * G * plane * plane}: " + ", ".join(
+                f"{part} {ms:.4f}" for part, ms in times) + f"; sum {sum(t for _, t in times):.4f}"
+                f" ms, the body {whole:.4f} ms")
+            for part, ms in times + [("body", whole)]:
+                per_step[name][part] = per_step[name].get(part, 0.0) + mult * ms
+        del ops
+    for name, parts in per_step.items():
+        print(f"{name} launches per train step: " + ", ".join(
+            f"{part} {ms:.4f}" for part, ms in parts.items()) + " ms")
+    return per_step
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -374,9 +538,19 @@ def main() -> int:
     built = _build.build_all()
     print(f"built {sorted(built)} from rxtpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     for name, (_, log) in built.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:  # the kernel and its template arguments
+                m = re.search(r"\d+((?:[a-z]+_)*kernel)(I(?:L[ib]\d+E)+E)?", line)
+                targs = re.findall(r"L[ib](\d+)E", (m and m.group(2)) or "")
+                entry = "" if m is None else m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
+    if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and K7.2's and K7.4's launches
+        fb_phase2(dev)
+        fb_launch_breakdown(dev)
+        print(card)
+        return 0
 
     # ---- 2. kernels against their plain versions -----------------------------
     phase("2 K1 crop_norm against its plain version (bit equality)")
@@ -551,33 +725,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
     del out, ref
 
-    phase(f"2 K6/K7 fused_block bodies against their plain versions (bf16 within "
-          f"{FB_BF16_TOP_ULPS} ulps of max|plain|, at most {FB_BF16_SHARE:g} of them more than "
-          f"one ulp off; f32 within {FB_F32_REL:g} of max|plain|)")
     from rxtpu_torch.ops import fused_block as fb
 
     fb_bodies = dict(zip(FB_NAMES, fb.BODIES))
-    fb_err = dict.fromkeys(FB_NAMES, 0.0)
-    for label, plane, c, f, proj, _ in FB_SHAPES[:2] + FB_SHAPES[-1:]:
-        ops = fb_operands(B * G, plane, c, f, proj, 7, dev)
-        for name in FB_NAMES:
-            out = fb_bodies[name](*ops[name])
-            ref = getattr(fb, f"{name}_reference")(*ops[name])
-            torch.cuda.synchronize()
-            out = out if isinstance(out, tuple) else (out,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            for i, (o, r) in enumerate(zip(out, ref)):
-                err, text, ok = fb_gap(o, r)
-                fb_err[name] = max(fb_err[name], err)
-                print(f"{name} {label:11s} V={B * G} {plane}^2 C={c} F={f} out[{i}] "
-                      f"{tuple(o.shape)}: {text}")
-                if not ok:
-                    fail(f"fused_block {name} differs from its plain version ({label}, out {i})")
-        again = fb.k3(*ops["k3"])
-        if not all(torch.equal(a, b) for a, b in zip(fb.k3(*ops["k3"]), again)):
-            fail(f"the c3 sums of k3 differ between two launches ({label})")
-        del ops, out, ref, again
-    print("c3's sums bit-equal over repeated launches at each shape (deterministic reductions)")
+    fb_err = fb_phase2(dev)
 
     # ---- 3. training end to end ---------------------------------------------
     phase("3 training end to end at full width (rxtpu_torch.cli)")
@@ -1319,6 +1470,7 @@ def main() -> int:
           f"{sum(fb_times[n][2] for n in FB_NAMES[4:]):.3f} ms); blocks fused forward "
           f"{blk_times[2]:.3f} ms, forward+backward {blk_times[3]:.3f} ms; unfused forward "
           f"{blk_times[0]:.3f} ms, forward+backward {blk_times[1]:.3f} ms")
+    fb_launch_breakdown(dev)
     for name in FB_NAMES:
         ms, plain_ms, bnd, t_bytes, t_ops, mm_ms = fb_times[name]
         print(f"{name} per step: {ms:.4f} ms, bound {bnd:.4f} ms ({100 * bnd / ms:.1f}%; bytes "

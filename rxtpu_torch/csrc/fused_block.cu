@@ -15,7 +15,9 @@
 // r + dy*W + dx only where (y+dy, x+dx) lies inside the view's plane, and 0
 // elsewhere (SAME padding), so no tap reads across views.
 //
-// Two kernel templates, launched eight ways:
+// Two families of kernels. The wmma templates serve K6.1-K6.4, K7.1 and
+// K7.3's adjoint conv and dw2; a pipelined 1x1 mainloop serves K7.2 and
+// K7.4 (dc3, g2, dw3; dcp, dx, dw1, dwp).
 //
 // gemm_kernel<MODE, EPI>: out[r, n] = sum_k A(r, k) W[k, n] over a 64x64 tile
 // of rows and output channels, W [K, N] bf16 row major. A(r, k) is
@@ -29,17 +31,33 @@
 // partial sum per (64-row tile, channel), reduced afterwards in a fixed
 // order by reduce_kernel.
 //
-// wgrad_kernel<MODE>: dW[k, n] = sum_r A(r, k) D(r, n) over a chunk of 2048
-// rows (A as above with a fixed tap, D a stored bf16 slab); one f32 partial
-// per chunk, reduced by reduce_kernel in chunk order.
+// wgrad_kernel<kTapBnRelu>: dW[tap, k, n] = sum_r A(r, k) D(r, n) over a
+// chunk of 2048 rows (A as above with a fixed tap, D a stored bf16 slab);
+// one f32 partial per chunk, reduced by reduce_kernel in chunk order.
+//
+// pipe_gemm_kernel<MODE, EPI, BN, WNK> (kStored or kBnRelu A, the BN
+// backward, ReLU-gradient and input-gradient epilogues) and
+// pipe_wgrad_kernel<MODE, TK, TN>: the same functions for 1x1 operands on
+// Hopper's copy engines. A 128 x BN tile (BN 256 where N allows, so A and
+// its prologue are read N / 256 times), eight warps, a cp.async ring of
+// A and W stages, the kBnRelu prologue applied once per staged 16-byte
+// chunk, ldmatrix + mma.sync m16n8k16; the epilogue's aux tiles (dy and y,
+// or c2) come in by bulk copies on an mbarrier while the products run, the
+// epilogue works on the accumulator registers with its per-channel vectors
+// read once, and the output leaves through shared memory in 16-byte rows.
+// Weight gradients use the same ring over rows, 64-128 x 128 output tiles
+// and enough row chunks to fill the card.
 //
 // bn_backward_kernel: dc = bf16(k*(g - da - ((c - mean)*inv)*db)), the BN
-// backward of _b3_kernel (dc2) and _b4_kernel (dc1), elementwise.
+// backward of _b3_kernel (dc2) and _b4_kernel (dc1), 8 channels (16 bytes)
+// per thread with the per-channel vectors in registers.
 //
 // Every reduction is deterministic: no float atomics; per-tile partials are
-// summed in a fixed order. So c3, computed by the same template in K6.3,
-// K6.4, K7.1 and K7.2, comes out bit for bit the same each time, as rxtpu's
-// recomputation assumes.
+// summed in a fixed order. c3, computed in K6.3, K6.4, K7.1 and K7.2, comes
+// out bit for bit the same each time, as rxtpu's recomputation assumes:
+// each output is summed from a zero f32 accumulator over k in ascending
+// 16-wide steps, one m16n8k16 HMMA per step, in the wmma 16x16x16
+// template and in pipe_gemm_kernel alike (no split over k).
 //
 // Rounding follows the plain PyTorch version op by op: every v*scale + shift
 // and every BN-backward term is a separately rounded __fmul_rn / __fadd_rn /
@@ -48,17 +66,20 @@
 // a1, a2, bn3, res, y, dc3, g2, dc2, g1, dc1, dcp, dx), comparisons run on
 // the bf16 values promoted to f32, and the BN sums read the bf16-rounded
 // values. A bf16 x bf16 product is exact in f32: the products run on the
-// tensor cores (wmma 16x16x16, f32 accumulators), so only the order of the
-// f32 sums differs from the plain version.
+// tensor cores (f32 accumulators), so only the order of the f32 sums
+// differs from the plain version.
 //
 // Bound: at ResNet-50's shapes (V = 48 views) most bodies move more bytes
 // than their tensor-core time: e.g. K6.1 at a stage-1 identity block reads
 // 203.5 MB of x and writes 50.9 MB of c1, 0.076 ms at 3.35 TB/s, against
 // 13.0 GFLOP, 0.013 ms at 989 TFLOP/s; the 3x3 bodies (K6.2, K7.3) are near
-// the balance. This first version stages its tiles through shared memory
-// without a copy pipeline (no cp.async, TMA or wgmma), re-reads A once per
-// 64-wide column tile, and materializes dc3, dc2, dc1 and dcp in device
-// memory; chip_smoke.py prints each body's time beside its bound.
+// the balance. K7.2 and K7.4 are bound by bytes too (dc3 alone at a
+// stage-1 block: c2, dy and y read, dc3 written, 661 MB = 0.197 ms against
+// 0.04 ms of products), so their kernels keep copies in flight rather than
+// reaching for wgmma's rate. The wmma templates stage their tiles through
+// shared memory without a copy pipeline, re-read A once per 64-wide column
+// tile, and materialize dc2, dc1, dcp and dc3 in device memory (the last
+// three still so); chip_smoke.py prints each body's time beside its bound.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -88,9 +109,9 @@ enum Epi {
   kResidual = 2,    // store bf16(bf16(acc)*scale + shift) (the projection's BN)
   kOutput = 3,      // store bf16(max(bf16(bf16(acc)*scale + shift) + res, 0)) (y)
   kBnSums = 4,      // sums of g3 and g3*xhat, xhat = (bf16(acc) - mean)*inv
-  kBnBackward = 5,  // store bf16(k*(g3 - da - xhat*db)) (dc3, dcp)
+  kBnBackward = 5,  // store bf16(k*(g3 - da - xhat*db)) (dc3, dcp; pipe_gemm_kernel)
   kReluGrad = 6,    // store g = bf16(acc*[a > 0]), a = bn_relu(c); sums of g and g*xhat(c)
-  kInputGrad = 7,   // store bf16(acc [+ g3]) (dx)
+  kInputGrad = 7,   // store bf16(acc [+ g3]) (dx; pipe_gemm_kernel)
 };
 
 }  // namespace
@@ -134,8 +155,10 @@ struct GemmArgs {
   const float* e_k;
   const float* e_da;
   const float* e_db;
-  float* part0;         // [ceil(rows / 64), n] partial sums
+  float* part0;         // [ceil(rows / 64), n] partial sums (pipe_gemm_kernel: [ceil(rows / 128), 2, n])
   float* part1;
+  const bf16* w2;       // pipe_gemm_kernel with W^T [n, k]: rows k >= k_split come from w2 [n, k - k_split]
+  int k_split;          // w [n, k_split]
 };
 
 struct WgradArgs {
@@ -319,18 +342,12 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
             __fadd_rn(__fmul_rn(round_bf16(acc_v), __ldg(g.e_scale + n)), __ldg(g.e_shift + n)));
         const float res = __bfloat162float(g.aux0[ia]);
         g.out[o] = __float2bfloat16_rn(fmaxf(__fadd_rn(bn3, res), 0.0f));
-      } else if (EPI == kBnSums || EPI == kBnBackward) {
+      } else if (EPI == kBnSums) {
         const float g3 = g3_at(g, ia);
         const float xhat = __fmul_rn(__fsub_rn(round_bf16(acc_v), __ldg(g.e_mean + n)),
                                      __ldg(g.e_inv + n));
-        if (EPI == kBnSums) {
-          v1 = g3;
-          v2 = __fmul_rn(g3, xhat);
-        } else {
-          g.out[o] = __float2bfloat16_rn(__fmul_rn(
-              __ldg(g.e_k + n),
-              __fsub_rn(__fsub_rn(g3, __ldg(g.e_da + n)), __fmul_rn(xhat, __ldg(g.e_db + n)))));
-        }
+        v1 = g3;
+        v2 = __fmul_rn(g3, xhat);
       } else if (EPI == kReluGrad) {
         const float c = __bfloat162float(g.aux0[ia]);
         const float a = bn_relu(c, __ldg(g.e_scale + n), __ldg(g.e_shift + n));
@@ -338,9 +355,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
         g.out[o] = gb;
         v1 = __bfloat162float(gb);
         v2 = __fmul_rn(v1, __fmul_rn(__fsub_rn(c, __ldg(g.e_mean + n)), __ldg(g.e_inv + n)));
-      } else if (EPI == kInputGrad) {
-        const float v = g.add_g3 ? __fadd_rn(acc_v, g3_at(g, ia)) : acc_v;
-        g.out[o] = __float2bfloat16_rn(v);
       }
     }
     if (kSums) {
@@ -445,25 +459,618 @@ __global__ void reduce_kernel(const float* __restrict__ part, float* __restrict_
   }
 }
 
-__global__ void bn_backward_kernel(const BnBwdArgs a) {
-  const long long total = a.rows * a.n;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = i / a.n;
-    const int j = static_cast<int>(i - r * a.n);
-    const float c = __bfloat162float(a.c[r * a.ld + j]);
-    const float gv = __bfloat162float(a.g[r * a.ld + j]);
-    const float xhat = __fmul_rn(__fsub_rn(c, __ldg(a.mean + j)), __ldg(a.inv + j));
-    a.out[r * a.ldo + a.out_col + j] = __float2bfloat16_rn(__fmul_rn(
-        __ldg(a.k + j), __fsub_rn(__fsub_rn(gv, __ldg(a.da + j)), __fmul_rn(xhat, __ldg(a.db + j)))));
+// dc = bf16(k*(g - da - xhat*db)) over [rows, n]: each thread takes 8
+// channels (one 16-byte load of g and c, one store), its per-channel vectors
+// loaded once, and steps over rows; no per-element index division
+__global__ void __launch_bounds__(256) bn_backward_kernel(const BnBwdArgs a) {
+  const int cpr = a.n / 8;  // 16-byte chunks per row
+  const int rpb = static_cast<int>(blockDim.x) / cpr;
+  const int tid = threadIdx.x;
+  if (tid >= rpb * cpr) return;
+  const int j = (tid % cpr) * 8;
+  float mean[8], inv[8], k[8], da[8], db[8];
+#pragma unroll
+  for (int q = 0; q < 8; q += 4) {
+    const float4 m4 = __ldg(reinterpret_cast<const float4*>(a.mean + j + q));
+    const float4 i4 = __ldg(reinterpret_cast<const float4*>(a.inv + j + q));
+    const float4 k4 = __ldg(reinterpret_cast<const float4*>(a.k + j + q));
+    const float4 a4 = __ldg(reinterpret_cast<const float4*>(a.da + j + q));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(a.db + j + q));
+    mean[q] = m4.x; mean[q + 1] = m4.y; mean[q + 2] = m4.z; mean[q + 3] = m4.w;
+    inv[q] = i4.x; inv[q + 1] = i4.y; inv[q + 2] = i4.z; inv[q + 3] = i4.w;
+    k[q] = k4.x; k[q + 1] = k4.y; k[q + 2] = k4.z; k[q + 3] = k4.w;
+    da[q] = a4.x; da[q + 1] = a4.y; da[q + 2] = a4.z; da[q + 3] = a4.w;
+    db[q] = b4.x; db[q + 1] = b4.y; db[q + 2] = b4.z; db[q + 3] = b4.w;
   }
+  for (long long r = static_cast<long long>(blockIdx.x) * rpb + tid / cpr; r < a.rows;
+       r += static_cast<long long>(gridDim.x) * rpb) {
+    Pack8 c, gv, o;
+    c.u = *reinterpret_cast<const uint4*>(a.c + r * a.ld + j);
+    gv.u = *reinterpret_cast<const uint4*>(a.g + r * a.ld + j);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 cf = __bfloat1622float2(c.h[q]), gf = __bfloat1622float2(gv.h[q]);
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * q + e;
+        const float xhat = __fmul_rn(__fsub_rn(e ? cf.y : cf.x, mean[i]), inv[i]);
+        v[e] = __fmul_rn(k[i], __fsub_rn(__fsub_rn(e ? gf.y : gf.x, da[i]), __fmul_rn(xhat, db[i])));
+      }
+      o.h[q] = __floats2bfloat162_rn(v[0], v[1]);
+    }
+    *reinterpret_cast<uint4*>(a.out + r * a.ldo + a.out_col + j) = o.u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pipelined 1x1 mainloop (K7.2's and K7.4's GEMMs and weight gradients)
+// ---------------------------------------------------------------------------
+
+constexpr int kPipeThreads = 256;  // eight warps: 2 along the rows x 4 along the columns
+constexpr int kPipeBK = 32;        // GEMM reduction depth per stage
+constexpr int kPipeSmem2 = 115712; // a block's shared memory when two share an SM
+constexpr int kLdPA = kPipeBK + 8; // staged A row pitch (bf16): ldmatrix without bank conflicts
+constexpr int kWgBR = 32;          // weight-gradient rows per stage
+constexpr int kWgSmem = 106496;    // weight-gradient ring: two blocks per SM
+constexpr int kMaxDevices = 64;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the aux tiles' copy engine: one bulk (TMA) copy per tile row, counted in
+// bytes on an mbarrier, so the ring's cp.async groups never wait for them
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_bytes(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory, one row address per lane
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  if (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+  }
+}
+
+// d += a b over one m16n8k16 step (f32 accumulators), the HMMA that wmma's
+// 16x16x16 bf16 lowers to on sm_90: so c3 sums in the same order as the
+// wmma template computes it
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16(relu(v*scale + shift)) in place on channels 2q, 2q + 1 of a staged
+// chunk, scale and shift (global or shared) at the chunk's first channel
+__device__ __forceinline__ void bn_relu_pair(bf16* p, const float* scale, const float* shift,
+                                             int q) {
+  const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[q]);
+  const float2 s2 = reinterpret_cast<const float2*>(scale)[q];
+  const float2 h2 = reinterpret_cast<const float2*>(shift)[q];
+  reinterpret_cast<__nv_bfloat162*>(p)[q] =
+      __floats2bfloat162_rn(bn_relu(x.x, s2.x, h2.x), bn_relu(x.y, s2.y, h2.y));
+}
+
+// the same on a whole 16-byte chunk of 8 channels: unrolled (the weight
+// gradient), or one pair at a time where the GEMM's accumulators leave few
+// registers (unrolled, pipe_gemm_kernel<kBnRelu, ..., 256, ...> spills)
+template <bool kRolled>
+__device__ __forceinline__ void bn_relu_chunk(bf16* p, const float* scale, const float* shift) {
+  if (kRolled) {
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) bn_relu_pair(p, scale, shift, q);
+  } else {  // one 16-byte load and store
+    Pack8 v;
+    v.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 x = __bfloat1622float2(v.h[q]);
+      const float2 s2 = reinterpret_cast<const float2*>(scale)[q];
+      const float2 h2 = reinterpret_cast<const float2*>(shift)[q];
+      v.h[q] = __floats2bfloat162_rn(bn_relu(x.x, s2.x, h2.x), bn_relu(x.y, s2.y, h2.y));
+    }
+    *reinterpret_cast<uint4*>(p) = v.u;
+  }
+}
+
+// Shared-memory plan of pipe_gemm_kernel<MODE, EPI, BN, WNK, BM>: the ring
+// of (A [BM][40], W [32][BN + 8] or W^T [BN][32], its 16-byte chunks
+// XOR-swizzled by row) stages, which the epilogue reuses to stage its bf16
+// output tile; the aux tiles (dy and y, or c) [BM][BN + 8]; the two warp
+// rows' column sums; the aux tiles' mbarrier. The ring takes as many
+// stages as fit, up to four. Where the accumulators leave room for two
+// blocks per SM (BM = 64, or BN <= 128), a block keeps within half an SM's
+// shared memory, so one block's epilogue overlaps the other's copies.
+template <int EPI, int BN, bool WNK, int BM>
+struct PipeGemmSmem {
+  static constexpr bool kTwoPerSm = BM == 64 || BN <= 128;  // registers allow two blocks per SM
+  static constexpr int kLdW = WNK ? kPipeBK : BN + 8;
+  static constexpr int kLdX = BN + 8;
+  static constexpr int kAux = (EPI == kBnBackward || EPI == kInputGrad) ? 2 : 1;
+  static constexpr int kStage = BM * kLdPA + (WNK ? BN : kPipeBK) * kLdW;  // bf16 elements
+  static constexpr int kAuxTile = BM * kLdX;                               // bf16 elements
+  static constexpr int kSums = EPI == kReluGrad ? 2 * 2 * BN * 4 : 0;
+  static constexpr int kFixed = kAux * kAuxTile * 2 + kSums + 8;  // bytes besides the ring
+  // as many stages as fit, up to four
+  static constexpr int kFit = ((kTwoPerSm ? kPipeSmem2 : 232448) - kFixed) / (kStage * 2);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kRing = kStages * kStage * 2;  // bytes
+  static constexpr int kBar = kRing + kAux * kAuxTile * 2 + kSums;
+  static constexpr int kBytes = kBar + 8;
+  static_assert(kStages >= 2, "a ring of at least two stages");
+  static_assert(kAuxTile * 2 <= kRing, "the output tile is staged in the ring");
+};
+
+// out[r, n] = sum_k A(r, k) W[k, n] over a BM x BN tile, A stored or
+// bf16(relu(c*scale + shift)) (kBnRelu, applied once per staged chunk), W
+// [K, N] row major or, with WNK, read as stored in W^T [N, K] (w3 for g2;
+// w1 and wp side by side for the projection's dx), K a multiple of 32.
+// Eight warps each own a BM/2 x BN/4 part of the tile: ldmatrix
+// fragments, mma.sync m16n8k16 over k in ascending 16-wide steps from a
+// zero accumulator. A and W arrive through a cp.async ring; the
+// epilogue's aux tiles are requested first, by bulk copies on an mbarrier,
+// so their bytes are in flight during the products and the ring never
+// waits for them. The epilogue reads its columns' per-channel vectors once,
+// works on the accumulator registers, stages the bf16 tile in shared memory
+// and stores it in 16-byte rows; its column sums go lanes (shuffles) ->
+// warp rows -> one pair per (BM-row tile, channel), in a fixed order.
+template <int MODE, int EPI, int BN, bool WNK, int BM>
+__global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::kTwoPerSm ? 2 : 1)
+    pipe_gemm_kernel(const GemmArgs g) {
+  using S = PipeGemmSmem<EPI, BN, WNK, BM>;
+  constexpr int MT = BM / 32;  // m16 tiles per warp (BM / 2 rows)
+  constexpr int NT = BN / 32;  // n8 tiles per warp (BN / 4 columns)
+  constexpr int kCpr = BN / 8; // 16-byte chunks per tile row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* aux = reinterpret_cast<bf16*>(smem + S::kRing);
+  float* sums = reinterpret_cast<float*>(smem + S::kRing + S::kAux * S::kAuxTile * 2);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
+  const int n0 = blockIdx.x * BN;
+  const int ktiles = g.k / kPipeBK;
+  const int n_aux = EPI == kInputGrad && !g.add_g3 ? 0 : S::kAux;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::kBar);
+
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * kPipeBK;
+    bf16* as = ring + slot * S::kStage;
+    bf16* ws = as + BM * kLdPA;
+#pragma unroll
+    for (int i = 0; i < BM * 4 / kPipeThreads; ++i) {  // A: BM rows x 4 chunks
+      const int c = tid + kPipeThreads * i;
+      const int row = c >> 2, q = (c & 3) * 8;
+      const long long r = m0 + row;
+      const bool ok = r < g.rows;
+      cp_async16(as + row * kLdPA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+    }
+    if (WNK) {  // W^T: BN rows x 4 chunks, from w or w2
+      const bool first = k0 < g.k_split;
+      const bf16* src = first ? g.w + k0 : g.w2 + (k0 - g.k_split);
+      const int ld = first ? g.k_split : g.k - g.k_split;
+#pragma unroll
+      for (int i = 0; i < BN * 4 / kPipeThreads; ++i) {
+        const int c = tid + kPipeThreads * i;
+        const int nr = c >> 2, q = c & 3;
+        cp_async16(ws + nr * S::kLdW + (q ^ ((nr >> 1) & 3)) * 8,
+                   src + static_cast<long long>(n0 + nr) * ld + q * 8, true);
+      }
+    } else {
+      // a rolled loop holds fewer addresses: no spills at BN = 256, BM = 64
+#pragma unroll 1
+      for (int i = 0; i < kPipeBK * kCpr / kPipeThreads; ++i) {  // W: 32 rows x BN/8 chunks
+        const int c = tid + kPipeThreads * i;
+        const int kr = c / kCpr, q = (c % kCpr) * 8;
+        cp_async16(ws + kr * S::kLdW + q, g.w + static_cast<long long>(k0 + kr) * g.n + n0 + q, true);
+      }
+    }
+  };
+  if (n_aux > 0) {  // the aux tiles' rows inside the slab: one bulk copy each
+    const long long live = g.rows - m0 < BM ? g.rows - m0 : BM;
+    if (tid == 0) mbar_init(bar);
+    __syncthreads();
+    if (tid == 0) mbar_expect_bytes(bar, static_cast<unsigned>(n_aux * live * BN * 2));
+    for (int i = tid; i < n_aux * BM; i += kPipeThreads) {
+      const int j = i / BM, row = i % BM;
+      if (row < live) {
+        bulk_copy(aux + j * S::kAuxTile + row * S::kLdX,
+                  (j == 0 ? g.aux0 : g.aux1) + (m0 + row) * g.ldaux + n0, BN * 2, bar);
+      }
+    }
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < ktiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<S::kStages - 2>();
+    const int slot = kt % S::kStages;
+    bf16* as = ring + slot * S::kStage;
+    const bf16* ws = as + BM * kLdPA;
+    if (MODE == kBnRelu) {  // this thread's own chunks, landed: the prologue, once
+#pragma unroll
+      for (int i = 0; i < BM * 4 / kPipeThreads; ++i) {
+        // rows past the slab are transformed too: their outputs are never stored
+        const int k = kt * kPipeBK + (tid & 3) * 8;
+        bn_relu_chunk<true>(as + ((tid >> 2) + 64 * i) * kLdPA + (tid & 3) * 8, g.a.scale + k,
+                            g.a.shift + k);
+      }
+    }
+    __syncthreads();
+    const int next = kt + S::kStages - 1;
+    if (next < ktiles) load_stage(next % S::kStages, next);
+    cp_async_commit();
+#pragma unroll
+    for (int kk = 0; kk < kPipeBK; kk += 16) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ldsm_x4<false>(af[mt], as + (wm * (BM / 2) + mt * 16 + (lane & 15)) * kLdPA + kk +
+                                   (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {  // two n8 tiles of B at a time
+        unsigned t[4];
+        if (WNK) {
+          const int nr = wn * (BN / 4) + p * 16 + (lane & 7) + (lane >> 4) * 8;
+          const int q = kk / 8 + ((lane >> 3) & 1);
+          ldsm_x4<false>(t, ws + nr * S::kLdW + (q ^ ((nr >> 1) & 3)) * 8);
+        } else {
+          ldsm_x4<true>(t, ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::kLdW + wn * (BN / 4) +
+                               p * 16 + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(acc[mt][2 * p], af[mt], t[0], t[1]);
+          mma16816(acc[mt][2 * p + 1], af[mt], t[2], t[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (n_aux > 0) mbar_wait(bar, 0);
+  __syncthreads();  // the ring is free for the output tile, the aux tiles have landed
+
+  bf16* stage = ring;  // [128][BN + 8] bf16
+  const bf16* aux0 = aux;
+  const bf16* aux1 = aux + S::kAuxTile;
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = wn * (BN / 4) + nt * 8 + 2 * t;  // this thread's columns col, col + 1
+    const int n = n0 + col;
+    const float2 zero2 = make_float2(0.0f, 0.0f);
+    float2 v_mean = zero2, v_inv = zero2, v_k = zero2, v_da = zero2, v_db = zero2,
+           v_scale = zero2, v_shift = zero2;
+    if (EPI == kBnBackward || EPI == kReluGrad) {
+      v_mean = __ldg(reinterpret_cast<const float2*>(g.e_mean + n));
+      v_inv = __ldg(reinterpret_cast<const float2*>(g.e_inv + n));
+    }
+    if (EPI == kBnBackward) {
+      v_k = __ldg(reinterpret_cast<const float2*>(g.e_k + n));
+      v_da = __ldg(reinterpret_cast<const float2*>(g.e_da + n));
+      v_db = __ldg(reinterpret_cast<const float2*>(g.e_db + n));
+    }
+    if (EPI == kReluGrad) {
+      v_scale = __ldg(reinterpret_cast<const float2*>(g.e_scale + n));
+      v_shift = __ldg(reinterpret_cast<const float2*>(g.e_shift + n));
+    }
+    float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * (BM / 2) + mt * 16 + gr + 8 * h;
+        const int o = row * S::kLdX + col;
+        const float acc2[2] = {acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]};
+        float out2[2];
+        if (EPI == kBnBackward || EPI == kInputGrad) {
+          float g3[2] = {0.0f, 0.0f};
+          if (EPI == kBnBackward || g.add_g3) {
+            const float2 dy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
+            const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux1 + o));
+            g3[0] = y.x > 0.0f ? dy.x : __fmul_rn(dy.x, 0.0f);
+            g3[1] = y.y > 0.0f ? dy.y : __fmul_rn(dy.y, 0.0f);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (EPI == kBnBackward) {
+              const float mean = e ? v_mean.y : v_mean.x, inv = e ? v_inv.y : v_inv.x;
+              const float kk = e ? v_k.y : v_k.x, da = e ? v_da.y : v_da.x, db = e ? v_db.y : v_db.x;
+              const float xhat = __fmul_rn(__fsub_rn(round_bf16(acc2[e]), mean), inv);
+              out2[e] = __fmul_rn(kk, __fsub_rn(__fsub_rn(g3[e], da), __fmul_rn(xhat, db)));
+            } else {
+              out2[e] = g.add_g3 ? __fadd_rn(acc2[e], g3[e]) : acc2[e];
+            }
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage + o) = __floats2bfloat162_rn(out2[0], out2[1]);
+        } else {  // kReluGrad
+          const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
+          const float cv[2] = {c.x, c.y};
+          bf16 gb[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = bn_relu(cv[e], e ? v_scale.y : v_scale.x, e ? v_shift.y : v_shift.x);
+            gb[e] = __float2bfloat16_rn(__fmul_rn(acc2[e], a > 0.0f ? 1.0f : 0.0f));
+            if (m0 + row < g.rows) {
+              const float v1 = __bfloat162float(gb[e]);
+              const float xhat = __fmul_rn(__fsub_rn(cv[e], e ? v_mean.y : v_mean.x),
+                                           e ? v_inv.y : v_inv.x);
+              s1[e] = __fadd_rn(s1[e], v1);
+              s2[e] = __fadd_rn(s2[e], __fmul_rn(v1, xhat));
+            }
+          }
+          __nv_bfloat162 pair;
+          pair.x = gb[0];
+          pair.y = gb[1];
+          *reinterpret_cast<__nv_bfloat162*>(stage + o) = pair;
+        }
+      }
+    }
+    if (EPI == kReluGrad) {
+#pragma unroll
+      for (int m = 4; m < 32; m <<= 1) {  // the lanes that share these columns
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], m));
+          s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], m));
+        }
+      }
+      if (gr == 0) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sums[(wm * 2 + 0) * BN + col + e] = s1[e];
+          sums[(wm * 2 + 1) * BN + col + e] = s2[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (EPI == kReluGrad) {  // warp row 0, then warp row 1: one partial per tile and channel
+    for (int i = tid; i < 2 * BN; i += kPipeThreads) {
+      const int which = i / BN, col = i % BN;
+      const float v = __fadd_rn(sums[which * BN + col], sums[(2 + which) * BN + col]);
+      g.part0[(static_cast<long long>(blockIdx.y) * 2 + which) * g.n + n0 + col] = v;
+    }
+  }
+#pragma unroll 4
+  for (int i = 0; i < BM * kCpr / kPipeThreads; ++i) {
+    const int c = tid + kPipeThreads * i;
+    const int row = c / kCpr, q = (c % kCpr) * 8;
+    const long long r = m0 + row;
+    if (r < g.rows) {
+      *reinterpret_cast<uint4*>(g.out + r * g.ldo + g.out_col + n0 + q) =
+          *reinterpret_cast<const uint4*>(stage + row * S::kLdX + q);
+    }
+  }
+}
+
+// dW[k, n] = sum_r A(r, k) D(r, n) over the rows of one chunk, for a TK x TN
+// tile of (k, n): A stored or bf16(relu(c*scale + shift)) (applied once per
+// staged chunk), D a stored bf16 slab. Eight warps each own a TK/2 x TN/4
+// part; both operands arrive [rows][channels] through a cp.async ring of up
+// to six stages and feed mma.sync through ldmatrix.trans. One f32 partial
+// per chunk, written from the registers, reduced by reduce_kernel in chunk
+// order.
+// its ring: as many stages as fit two blocks to an SM, up to six
+template <int TK, int TN>
+struct WgradRing {
+  static constexpr int kStage = kWgBR * (TK + 8 + TN + 8) * 2;  // bytes
+  static constexpr int kStages = kWgSmem / kStage < 6 ? kWgSmem / kStage : 6;
+  static constexpr int kBytes = kStages * kStage + 2 * TK * 4;  // + kBnRelu's scale and shift
+};
+
+template <int MODE, int TK, int TN>
+__global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const WgradArgs g) {
+  constexpr int kLdA = TK + 8, kLdD = TN + 8;
+  constexpr int kWgStages = WgradRing<TK, TN>::kStages;
+  constexpr int kStage = kWgBR * (kLdA + kLdD);  // bf16 elements
+  constexpr int MT = TK / 32, NT = TN / 32;
+  constexpr int kCprA = TK / 8, kCprD = TN / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* vec = reinterpret_cast<float*>(smem + kWgStages * kStage * 2);  // scale [TK], shift [TK]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int n0 = blockIdx.x * TN, k0 = blockIdx.y * TK;
+  if (MODE == kBnRelu) {  // this tile's channels, read by the prologue of every stage
+    for (int i = tid; i < TK; i += kPipeThreads) {
+      vec[i] = g.a.scale[k0 + i];
+      vec[TK + i] = g.a.shift[k0 + i];
+    }
+    __syncthreads();
+  }
+  const int chunk = blockIdx.z;
+  const long long r_begin = static_cast<long long>(chunk) * g.chunk_rows;
+  long long r_end = r_begin + g.chunk_rows;
+  if (r_end > g.rows) r_end = g.rows;
+  const int steps = static_cast<int>((r_end - r_begin + kWgBR - 1) / kWgBR);
+
+  auto load_stage = [&](int slot, int step) {
+    const long long r0 = r_begin + static_cast<long long>(step) * kWgBR;
+    bf16* as = ring + slot * kStage;
+    bf16* ds = as + kWgBR * kLdA;
+#pragma unroll
+    for (int i = 0; i < kWgBR * kCprA / kPipeThreads; ++i) {
+      const int c = tid + kPipeThreads * i;
+      const int rr = c / kCprA, q = (c % kCprA) * 8;
+      const long long r = r0 + rr;
+      const bool ok = r < r_end;
+      cp_async16(as + rr * kLdA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kWgBR * kCprD / kPipeThreads; ++i) {
+      const int c = tid + kPipeThreads * i;
+      const int rr = c / kCprD, q = (c % kCprD) * 8;
+      const long long r = r0 + rr;
+      const bool ok = r < r_end;
+      cp_async16(ds + rr * kLdD + q, g.d + (ok ? r : 0) * g.ldd + g.d_col + n0 + q, ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < steps) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kWgStages - 2>();
+    const int slot = step % kWgStages;
+    bf16* as = ring + slot * kStage;
+    const bf16* ds = as + kWgBR * kLdA;
+    if (MODE == kBnRelu) {  // this thread's own chunks, landed: the prologue, once
+      const long long r0 = r_begin + static_cast<long long>(step) * kWgBR;
+#pragma unroll
+      for (int i = 0; i < kWgBR * kCprA / kPipeThreads; ++i) {
+        const int c = tid + kPipeThreads * i;
+        const int rr = c / kCprA, q = (c % kCprA) * 8;
+        if (r0 + rr < r_end) bn_relu_chunk<false>(as + rr * kLdA + q, vec + q, vec + TK + q);
+      }
+    }
+    __syncthreads();
+    const int next = step + kWgStages - 1;
+    if (next < steps) load_stage(next % kWgStages, next);
+    cp_async_commit();
+#pragma unroll
+    for (int kk = 0; kk < kWgBR; kk += 16) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ldsm_x4<true>(af[mt], as + (kk + (lane & 7) + (lane >> 4) * 8) * kLdA + wm * (TK / 2) +
+                                  mt * 16 + ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {  // two n8 tiles of D at a time
+        unsigned t[4];
+        ldsm_x4<true>(t, ds + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdD + wn * (TN / 4) +
+                             p * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(acc[mt][2 * p], af[mt], t[0], t[1]);
+          mma16816(acc[mt][2 * p + 1], af[mt], t[2], t[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  float* part = g.part + static_cast<long long>(chunk) * g.k * g.n;
+  const int gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = k0 + wm * (TK / 2) + mt * 16 + gr + 8 * h;
+        const int n = n0 + wn * (TN / 4) + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(part + static_cast<long long>(k) * g.n + n) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// the kernel's dynamic shared-memory limit, set once per device
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes, bool (&done_on)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!done_on[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    done_on[dev] = true;
+  }
+  return 0;
 }
 
 int done() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
-// One GEMM with its prologue and epilogue; grid (n / 64, ceil(rows / 64)).
+// One GEMM of the wmma template with its prologue and epilogue (K6.1-K6.4,
+// K7.1, K7.3's adjoint); grid (n / 64, ceil(rows / 64)).
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
 // cudaErrorInvalidValue for a (mode, epi) pair that no body uses.
 extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
@@ -484,28 +1091,22 @@ extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
   RXTPU_FB_CASE(kBnRelu, kOutput)          // K6.4 y
   RXTPU_FB_CASE(kBnRelu, kBnSums)          // K7.1 BN3 sums
   RXTPU_FB_CASE(kStored, kBnSums)          // K7.1 projection sum
-  RXTPU_FB_CASE(kBnRelu, kBnBackward)      // K7.2 dc3
-  RXTPU_FB_CASE(kStored, kReluGrad)        // K7.2 g2
   RXTPU_FB_CASE(kTapAdjoint, kReluGrad)    // K7.3 g1
-  RXTPU_FB_CASE(kStored, kBnBackward)      // K7.4 dcp
-  RXTPU_FB_CASE(kStored, kInputGrad)       // K7.4 dx
 #undef RXTPU_FB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A weight gradient's per-chunk partials; grid (n / 64, k / 64, chunks * taps).
+// K7.3's per-tap weight gradient dw2 (kTapBnRelu): per-chunk partials; grid
+// (n / 64, k / 64, chunks * taps).
 extern "C" int rxtpu_fb_wgrad(const WgradArgs* args, void* stream) {
   const WgradArgs& a = *args;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = (a.rows + a.chunk_rows - 1) / a.chunk_rows;
   if (chunks == 0) return static_cast<int>(cudaSuccess);
   const dim3 grid(a.n / 64, a.k / 64, static_cast<unsigned>(chunks * a.taps));
-  switch (a.mode) {
-    case kStored: wgrad_kernel<kStored><<<grid, kThreads, 0, st>>>(a); return done();
-    case kBnRelu: wgrad_kernel<kBnRelu><<<grid, kThreads, 0, st>>>(a); return done();
-    case kTapBnRelu: wgrad_kernel<kTapBnRelu><<<grid, kThreads, 0, st>>>(a); return done();
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (a.mode != kTapBnRelu) return static_cast<int>(cudaErrorInvalidValue);
+  wgrad_kernel<kTapBnRelu><<<grid, kThreads, 0, st>>>(a);
+  return done();
 }
 
 // out[i] = sum_c part[c * size + i] over c in [0, chunks), in a fixed order;
@@ -533,10 +1134,104 @@ extern "C" int rxtpu_fb_reduce(const float* part, float* tmp, float* out, int ch
 extern "C" int rxtpu_fb_bn_backward(const BnBwdArgs* args, void* stream) {
   const BnBwdArgs& a = *args;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = a.rows * a.n;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (total + 255) / 256;
-  if (blocks > 65535LL * 8) blocks = 65535LL * 8;
+  if (a.rows == 0) return static_cast<int>(cudaSuccess);
+  const int cpr = a.n / 8;
+  if (a.n % 8 != 0 || cpr > 256 || a.out_col % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rpb = 256 / cpr;
+  long long blocks = (a.rows + rpb - 1) / rpb;
+  if (blocks > 132LL * 16) blocks = 132LL * 16;
   bn_backward_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(a);
   return done();
+}
+
+namespace {
+
+template <int MODE, int EPI, bool WNK, int BM, int BN>
+int launch_pipe_gemm(const GemmArgs& a, cudaStream_t st) {
+  constexpr int kBytes = PipeGemmSmem<EPI, BN, WNK, BM>::kBytes;
+  static bool smem_set[kMaxDevices] = {};
+  const int err = set_smem(pipe_gemm_kernel<MODE, EPI, BN, WNK, BM>, kBytes, smem_set);
+  if (err != 0) return err;
+  const dim3 grid(a.n / BN, static_cast<unsigned>((a.rows + BM - 1) / BM));
+  pipe_gemm_kernel<MODE, EPI, BN, WNK, BM><<<grid, kPipeThreads, kBytes, st>>>(a);
+  return done();
+}
+
+// the widest column tile that divides n: A and its prologue are read n / BN
+// times
+template <int MODE, int EPI, bool WNK, int BM>
+int launch_pipe_gemm(const GemmArgs& a, cudaStream_t st) {
+  if (WNK && (a.k_split % kPipeBK != 0 || a.k_split > a.k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.n % 256 == 0) return launch_pipe_gemm<MODE, EPI, WNK, BM, 256>(a, st);
+  if (a.n % 128 == 0) return launch_pipe_gemm<MODE, EPI, WNK, BM, 128>(a, st);
+  return launch_pipe_gemm<MODE, EPI, WNK, BM, 64>(a, st);
+}
+
+template <int MODE, int TK, int TN>
+int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
+  constexpr int kBytes = WgradRing<TK, TN>::kBytes;
+  static bool smem_set[kMaxDevices] = {};
+  const int err = set_smem(pipe_wgrad_kernel<MODE, TK, TN>, kBytes, smem_set);
+  if (err != 0) return err;
+  pipe_wgrad_kernel<MODE, TK, TN><<<dim3(a.n / TN, a.k / TK, chunks), kPipeThreads, kBytes, st>>>(a);
+  return done();
+}
+
+template <int MODE>
+int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
+  if (a.k % 128 == 0) {
+    return a.n % 128 == 0 ? launch_pipe_wgrad<MODE, 128, 128>(a, chunks, st)
+                          : launch_pipe_wgrad<MODE, 128, 64>(a, chunks, st);
+  }
+  return a.n % 128 == 0 ? launch_pipe_wgrad<MODE, 64, 128>(a, chunks, st)
+                        : launch_pipe_wgrad<MODE, 64, 64>(a, chunks, st);
+}
+
+}  // namespace
+
+// One GEMM on the pipelined mainloop (K7.2's dc3 and g2, K7.4's dcp and
+// dx); grid (n / BN, ceil(rows / BM)), BM 128 for g2, whose one pair of
+// partial sums per (128-row tile, channel) goes to part0 [tiles, 2, n], and
+// 64 for the others. k a
+// multiple of 32, n of 64; g2 and dx read W^T [n, k] as stored.
+extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
+  const GemmArgs& a = *args;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.rows == 0) return static_cast<int>(cudaSuccess);
+  if (a.k % kPipeBK != 0 || a.n % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.mode == kBnRelu && a.epi == kBnBackward) {  // K7.2 dc3, W = w3
+    return launch_pipe_gemm<kBnRelu, kBnBackward, false, 64>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kReluGrad) {  // K7.2 g2, W^T = w3
+    return launch_pipe_gemm<kStored, kReluGrad, true, 128>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kBnBackward) {  // K7.4 dcp, W = wp
+    return launch_pipe_gemm<kStored, kBnBackward, false, 64>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kInputGrad) {  // K7.4 dx, W^T = [w1 | wp]
+    return launch_pipe_gemm<kStored, kInputGrad, true, 64>(a, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 1x1 weight gradient on the pipelined mainloop (K7.2's dw3, K7.4's dw1
+// and dwp): per-chunk partials [chunks, k, n]; grid (n / TN, k / TK,
+// chunks), k and n multiples of 64, chunk_rows of 32.
+extern "C" int rxtpu_fb_pipe_wgrad(const WgradArgs* args, void* stream) {
+  const WgradArgs& a = *args;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long chunks = (a.rows + a.chunk_rows - 1) / a.chunk_rows;
+  if (chunks == 0) return static_cast<int>(cudaSuccess);
+  if (a.k % 64 != 0 || a.n % 64 != 0 || a.chunk_rows % kWgBR != 0 || a.taps != 1 ||
+      chunks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned c = static_cast<unsigned>(chunks);
+  switch (a.mode) {
+    case kStored: return launch_pipe_wgrad<kStored>(a, c, st);
+    case kBnRelu: return launch_pipe_wgrad<kBnRelu>(a, c, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -46,6 +46,7 @@ helpers convert ``nn.Conv2d`` weights to the kernels' layouts and back.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -242,8 +243,15 @@ _STORED, _BN_RELU, _TAP_BN_RELU, _TAP_ADJOINT = range(4)
 (_STORE_STATS, _STATS, _RESIDUAL, _OUTPUT, _BN_SUMS, _BN_BACKWARD, _RELU_GRAD,
  _INPUT_GRAD) = range(8)
 _SUM_EPIS = (_STORE_STATS, _STATS, _BN_SUMS, _RELU_GRAD)
-_ROW_TILE = 64        # rows per GEMM block: one partial sum per tile and channel
-_WGRAD_CHUNK = 2048   # rows per weight-gradient partial
+_ROW_TILE = 64  # rows per block of the template GEMM: one partial sum per tile and channel
+# the (mode, epilogue) pairs of K7.2 and K7.4, on the pipelined mainloop, and
+# its rows per block; g2 and dx read their weights transposed, as stored
+# ([n, k]: w3 for g2, w1 and wp for dx)
+_PIPE_ROW_TILES = {(_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
+                   (_STORED, _RELU_GRAD): 128, (_STORED, _INPUT_GRAD): 64}
+_WT_PAIRS = ((_STORED, _RELU_GRAD), (_STORED, _INPUT_GRAD))
+_WGRAD_CHUNK = 2048   # rows per partial of the per-tap weight gradient (dw2)
+_PIPE_ROWS = 32       # the pipelined weight gradient's chunks are multiples of this many rows
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
@@ -257,7 +265,8 @@ class _GemmArgs(ctypes.Structure):
                 ("mode", _int), ("epi", _int), ("out", _vp), ("ldo", _ll), ("out_col", _int),
                 ("add_g3", _int), ("aux0", _vp), ("aux1", _vp), ("ldaux", _ll),
                 ("e_scale", _vp), ("e_shift", _vp), ("e_mean", _vp), ("e_inv", _vp),
-                ("e_k", _vp), ("e_da", _vp), ("e_db", _vp), ("part0", _vp), ("part1", _vp)]
+                ("e_k", _vp), ("e_da", _vp), ("e_db", _vp), ("part0", _vp), ("part1", _vp),
+                ("w2", _vp), ("k_split", _int)]
 
 
 class _WgradArgs(ctypes.Structure):
@@ -272,11 +281,13 @@ class _BnBwdArgs(ctypes.Structure):
                 ("n", _int), ("out_col", _int)]
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     from rxtpu_torch.ops._build import load_library
 
     lib = load_library("fused_block")
-    for name, args in (("rxtpu_fb_gemm", _GemmArgs), ("rxtpu_fb_wgrad", _WgradArgs),
+    for name, args in (("rxtpu_fb_gemm", _GemmArgs), ("rxtpu_fb_pipe_gemm", _GemmArgs),
+                       ("rxtpu_fb_wgrad", _WgradArgs), ("rxtpu_fb_pipe_wgrad", _WgradArgs),
                        ("rxtpu_fb_bn_backward", _BnBwdArgs)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(args), _vp]
@@ -291,7 +302,7 @@ def _p(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _ok(err: int, what: str) -> None:
@@ -316,38 +327,64 @@ def _reduce(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gemm(mode, epi, a: _ASrc, w, rows, device, *, out=None, out_col=0, aux0=None, aux1=None,
-          add_g3=False, e_scale=None, e_shift=None, e_mean=None, e_inv=None, e_k=None,
+def _gemm(mode, epi, a: _ASrc, w, rows, device, *, w2=None, out=None, out_col=0, aux0=None,
+          aux1=None, add_g3=False, e_scale=None, e_shift=None, e_mean=None, e_inv=None, e_k=None,
           e_da=None, e_db=None):
-    """``out[r, n] = sum_k A(r, k) w[k, n]`` with epilogue ``epi``; returns
-    the per-channel sums (two ``[n]`` vectors) for the epilogues that take
-    them."""
-    k, n = w.shape
+    """``out[r, n] = sum_k A(r, k) W[k, n]`` with epilogue ``epi``, ``W = w``
+    ``[k, n]``, or for the pairs in ``_WT_PAIRS`` ``W^T = [w | w2]`` ``[n,
+    k]``; returns the per-channel sums (two ``[n]`` vectors) for the
+    epilogues that take them."""
+    wt = (mode, epi) in _WT_PAIRS
+    k, n = (w.shape[1] + (0 if w2 is None else w2.shape[1]), w.shape[0]) if wt else w.shape
     sums = epi in _SUM_EPIS
-    tiles = -(-rows // _ROW_TILE)
+    pipe = (mode, epi) in _PIPE_ROW_TILES
+    row_tile = _PIPE_ROW_TILES.get((mode, epi), _ROW_TILE)
+    tiles = -(-rows // row_tile)
     if tiles > 65535:  # one grid row per tile of rows
-        raise ValueError(f"the fused_block kernels take at most {65535 * _ROW_TILE} rows, got "
+        raise ValueError(f"the fused_block kernels take at most {65535 * row_tile} rows, got "
                          f"{rows}")
-    parts = [torch.empty((tiles, n), dtype=F32, device=device) for _ in range(2 if sums else 0)]
+    # the pipelined kernel writes both sums of a tile side by side: one reduction
+    shapes = [(tiles, 2, n)] if pipe else [(tiles, n)] * 2
+    parts = [torch.empty(shape, dtype=F32, device=device) for shape in (shapes if sums else ())]
     args = _GemmArgs(
         a=a, w=_p(w), rows=rows, k=k, n=n, mode=mode, epi=epi, out=_p(out),
         ldo=0 if out is None else out.shape[1], out_col=out_col, add_g3=int(add_g3),
         aux0=_p(aux0), aux1=_p(aux1), ldaux=0 if aux0 is None else aux0.shape[1],
         e_scale=_p(e_scale), e_shift=_p(e_shift), e_mean=_p(e_mean), e_inv=_p(e_inv),
         e_k=_p(e_k), e_da=_p(e_da), e_db=_p(e_db),
-        part0=_p(parts[0]) if sums else None, part1=_p(parts[1]) if sums else None)
-    _ok(_lib().rxtpu_fb_gemm(ctypes.byref(args), _stream(w)), "gemm")
-    return tuple(_reduce(p) for p in parts) if sums else None
+        part0=_p(parts[0]) if sums else None, part1=_p(parts[-1]) if sums and not pipe else None,
+        w2=_p(w2), k_split=w.shape[1] if wt else 0)
+    launch = _lib().rxtpu_fb_pipe_gemm if pipe else _lib().rxtpu_fb_gemm
+    _ok(launch(ctypes.byref(args), _stream(w)), "gemm")
+    if not sums:
+        return None
+    return tuple(_reduce(parts[0])) if pipe else tuple(_reduce(p) for p in parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _wgrad_chunk_rows(rows: int, k: int, n: int, device: torch.device) -> int:
+    """Rows per partial of the pipelined weight gradient: enough chunks that
+    chunks x output tiles fill two waves of two blocks per SM."""
+    tiles = (k // (128 if k % 128 == 0 else 64)) * (n // (128 if n % 128 == 0 else 64))
+    chunks = max(1, -(-4 * _sm_count(device) // tiles))
+    return -(-rows // (chunks * _PIPE_ROWS)) * _PIPE_ROWS or _PIPE_ROWS
 
 
 def _wgrad(mode, a: _ASrc, k, d, n, rows, *, d_col=0, taps=1) -> torch.Tensor:
     """``dW[k, n] = sum_r A(r, k) d[r, d_col + n]`` (per tap with ``taps=9``:
-    ``[9, k, n]``)."""
-    chunks = -(-rows // _WGRAD_CHUNK)
+    ``[9, k, n]``): the pipelined kernel for one tap, the wmma template for
+    nine."""
+    chunk_rows = _WGRAD_CHUNK if taps > 1 else _wgrad_chunk_rows(rows, k, n, d.device)
+    chunks = -(-rows // chunk_rows)
     part = torch.empty((chunks, taps, k, n), dtype=F32, device=d.device)
     args = _WgradArgs(a=a, mode=mode, taps=taps, d=_p(d), ldd=d.shape[1], rows=rows, k=k, n=n,
-                      d_col=d_col, chunk_rows=_WGRAD_CHUNK, part=_p(part))
-    _ok(_lib().rxtpu_fb_wgrad(ctypes.byref(args), _stream(d)), "wgrad")
+                      d_col=d_col, chunk_rows=chunk_rows, part=_p(part))
+    launch = _lib().rxtpu_fb_wgrad if taps > 1 else _lib().rxtpu_fb_pipe_wgrad
+    _ok(launch(ctypes.byref(args), _stream(d)), "wgrad")
     out = _reduce(part)
     return out if taps > 1 else out[0]
 
@@ -479,8 +516,8 @@ def b2(dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2):
     _gemm(_BN_RELU, _BN_BACKWARD, a2, w3, rows, c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3,
           e_inv=i3, e_k=k3, e_da=d3a, e_db=d3b)
     g2 = torch.empty_like(c2)
-    s2a, s2b = _gemm(_STORED, _RELU_GRAD, _a(dc3), w3.t().contiguous(), rows, c2.device, out=g2,
-                     aux0=c2, e_scale=sc2, e_shift=sh2, e_mean=m2, e_inv=i2)
+    s2a, s2b = _gemm(_STORED, _RELU_GRAD, _a(dc3), w3, rows, c2.device, out=g2, aux0=c2,
+                     e_scale=sc2, e_shift=sh2, e_mean=m2, e_inv=i2)
     dw3 = _wgrad(_BN_RELU, a2, f, dc3, w3.shape[1], rows)
     b2.launches += 1
     return g2, dw3, s2a, s2b
@@ -512,7 +549,7 @@ def b4(g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, wp=None, kp=None, dpa=None, d
        mp=None, ip=None):
     """K7.4 (``_b4_kernel``): ``(dx, dw1[, dwp])``, as ``b4_reference``; dc1
     and dcp go through device memory side by side, so dx is one GEMM over
-    ``[dc1 | dcp] [w1^T; wp^T]``."""
+    ``[dc1 | dcp] [w1 | wp]^T``."""
     if not _on_card("b4", [g1, c1, x, dy, y], [w1, wp],
                     [k1, d1a, d1b, m1, i1, kp, dpa, dpb, mp, ip]):
         return b4_reference(g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, wp, kp, dpa, dpb, mp, ip)
@@ -521,14 +558,12 @@ def b4(g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, wp=None, kp=None, dpa=None, d
     n4 = 0 if wp is None else wp.shape[1]
     dc = torch.empty((rows, f + n4), dtype=BF16, device=x.device)  # [dc1 | dcp]
     _bn_bwd(g1, c1, k1, d1a, d1b, m1, i1, dc)
-    wt = w1.t()
     if wp is not None:
         _gemm(_STORED, _BN_BACKWARD, _a(x), wp, rows, x.device, out=dc, out_col=f, aux0=dy,
               aux1=y, e_mean=mp, e_inv=ip, e_k=kp, e_da=dpa, e_db=dpb)
-        wt = torch.cat([wt, wp.t()])
     dx = torch.empty_like(x)
-    _gemm(_STORED, _INPUT_GRAD, _a(dc), wt.contiguous(), rows, x.device, out=dx, aux0=dy,
-          aux1=y, add_g3=wp is None)
+    _gemm(_STORED, _INPUT_GRAD, _a(dc), w1, rows, x.device, w2=wp, out=dx, aux0=dy, aux1=y,
+          add_g3=wp is None)
     out = (dx, _wgrad(_STORED, _a(x), c, dc, f, rows))
     if wp is not None:
         out += (_wgrad(_STORED, _a(x), c, dc, n4, rows, d_col=f),)
