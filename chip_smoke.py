@@ -22,7 +22,7 @@ Phases, each ending the run with a non-zero exit when it fails:
    tile): bf16 outputs within two ulps of max|plain| with at most 1e-3 of
    their elements more than one ulp of their own value apart (f32 sum order
    alone differs), f32 sums and weight gradients within 3e-3 of max|plain|,
-   c3's sums and K7.2's and K7.4's outputs bit-equal over repeated
+   c3's sums and the outputs of K7.1-K7.4 bit-equal over repeated
    launches, and K7.2's dc3 bit-equal to the BN3 backward of c3 as K6.4
    computes it;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
@@ -63,12 +63,12 @@ Phases, each ending the run with a non-zero exit when it fails:
    the unfused one (ms, views/s, memory, device time by kernel), each K6/K7
    body at the 13 blocks' shapes of a step beside its bound, its plain
    version and ``torch.matmul`` of its largest product, each launch of
-   K7.2 and K7.4 timed alone, and the blocks fused against the unfused
+   K7.1-K7.4 timed alone, and the blocks fused against the unfused
    composition, forward and backward.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
-phase 2's K6/K7 checks and the timing of K7.2's and K7.4's launches, per
-block shape and per train step.
+phase 2's K6/K7 checks and the timing of K7.1-K7.4's launches, per block
+shape and per train step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -369,31 +369,53 @@ def fb_c3_check(fb, args):
 
 
 def fb_launch_parts(fb, name, args):
-    """The launches of body ``b2`` or ``b4`` on ``args``, as its wrapper
+    """The launches of backward body ``name`` on ``args``, as its wrapper
     makes them, each as (label, fn): a GEMM or weight gradient with the
-    reductions of its sums, the BN backward, and where the wrapper
-    transposes a weight (wrappers without ``_WT_PAIRS``, which copied the
-    transposed weights per call) the transpose."""
+    reductions of its sums, the BN backward, and for a ``b3`` whose adjoint
+    3x3 GEMM is not in ``_WT_PAIRS`` (it took w2 transposed, copied per
+    call) that transpose."""
     import torch
 
-    wt = hasattr(fb, "_WT_PAIRS")  # the GEMMs read the weights as stored
+    if name == "b1":
+        dy, y, c2, sc2, sh2, w3, m3, i3, *proj = args
+        rows = c2.shape[0]
+        parts = [("s3 gemm+sums", lambda: fb._gemm(fb._BN_RELU, fb._BN_SUMS,
+                                                   fb._a(c2, scale=sc2, shift=sh2), w3, rows,
+                                                   c2.device, aux0=dy, aux1=y, e_mean=m3,
+                                                   e_inv=i3))]
+        if proj:
+            x, wp, mp, ip = proj
+            parts.append(("sp gemm+sums", lambda: fb._gemm(fb._STORED, fb._BN_SUMS, fb._a(x), wp,
+                                                           rows, c2.device, aux0=dy, aux1=y,
+                                                           e_mean=mp, e_inv=ip)))
+        return parts
+    if name == "b3":
+        g2, c1, c2, sc1, sh1, k2, d2a, d2b, m2, i2, w2, m1, i1, height, width = args
+        rows, f = c1.shape
+        dc2, g1 = torch.empty_like(c2), torch.empty_like(c1)
+        stored = (fb._TAP_ADJOINT, fb._RELU_GRAD) in fb._WT_PAIRS
+        w2t = w2 if stored else w2.transpose(1, 2).reshape(9 * f, f)
+        parts = [("dc2 bn_backward", lambda: fb._bn_bwd(g2, c2, k2, d2a, d2b, m2, i2, dc2))]
+        if not stored:
+            parts.append(("w2 transpose", lambda: w2.transpose(1, 2).reshape(9 * f, f)))
+        parts.append(("g1 gemm+sums", lambda: fb._gemm(
+            fb._TAP_ADJOINT, fb._RELU_GRAD, fb._a(dc2, kc=f, height=height, width=width), w2t,
+            rows, c1.device, out=g1, aux0=c1, e_scale=sc1, e_shift=sh1, e_mean=m1, e_inv=i1)))
+        a1 = fb._a(c1, kc=f, scale=sc1, shift=sh1, height=height, width=width)
+        parts.append(("dw2 wgrad", lambda: fb._wgrad(fb._TAP_BN_RELU, a1, f, dc2, f, rows, taps=9)))
+        return parts
     if name == "b2":
         dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2 = args
         rows, f = c2.shape
         dc3, g2 = torch.empty_like(dy), torch.empty_like(c2)
-        w3t = w3 if wt else w3.t().contiguous()
         a2 = fb._a(c2, scale=sc2, shift=sh2)
-        parts = [("dc3 gemm", lambda: fb._gemm(fb._BN_RELU, fb._BN_BACKWARD, a2, w3, rows,
-                                               c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3,
-                                               e_inv=i3, e_k=k3, e_da=d3a, e_db=d3b))]
-        if not wt:
-            parts.append(("w3 transpose", lambda: w3.t().contiguous()))
-        parts.append(("g2 gemm+sums", lambda: fb._gemm(fb._STORED, fb._RELU_GRAD, fb._a(dc3), w3t,
-                                                       rows, c2.device, out=g2, aux0=c2,
-                                                       e_scale=sc2, e_shift=sh2, e_mean=m2,
-                                                       e_inv=i2)))
-        parts.append(("dw3 wgrad", lambda: fb._wgrad(fb._BN_RELU, a2, f, dc3, w3.shape[1], rows)))
-        return parts
+        return [("dc3 gemm", lambda: fb._gemm(fb._BN_RELU, fb._BN_BACKWARD, a2, w3, rows,
+                                              c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3,
+                                              e_inv=i3, e_k=k3, e_da=d3a, e_db=d3b)),
+                ("g2 gemm+sums", lambda: fb._gemm(fb._STORED, fb._RELU_GRAD, fb._a(dc3), w3, rows,
+                                                  c2.device, out=g2, aux0=c2, e_scale=sc2,
+                                                  e_shift=sh2, e_mean=m2, e_inv=i2)),
+                ("dw3 wgrad", lambda: fb._wgrad(fb._BN_RELU, a2, f, dc3, w3.shape[1], rows))]
     g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, *proj = args
     rows, c = x.shape
     f = c1.shape[1]
@@ -401,26 +423,15 @@ def fb_launch_parts(fb, name, args):
     n4 = wp.shape[1] if proj else 0
     dc = torch.empty((rows, f + n4), dtype=torch.bfloat16, device=x.device)
     dx = torch.empty_like(x)
-
-    def transpose():
-        return torch.cat([w1.t(), wp.t()]).contiguous() if proj else w1.t().contiguous()
-
     parts = [("dc1 bn_backward", lambda: fb._bn_bwd(g1, c1, k1, d1a, d1b, m1, i1, dc))]
     if proj:
         _, kp, dpa, dpb, mp, ip = proj
         parts.append(("dcp gemm", lambda: fb._gemm(
             fb._STORED, fb._BN_BACKWARD, fb._a(x), wp, rows, x.device, out=dc, out_col=f,
             aux0=dy, aux1=y, e_mean=mp, e_inv=ip, e_k=kp, e_da=dpa, e_db=dpb)))
-    if wt:
-        parts.append(("dx gemm", lambda: fb._gemm(fb._STORED, fb._INPUT_GRAD, fb._a(dc), w1, rows,
-                                                  x.device, w2=wp, out=dx, aux0=dy, aux1=y,
-                                                  add_g3=not proj)))
-    else:
-        w_t = transpose()
-        parts.append(("w transpose", transpose))
-        parts.append(("dx gemm", lambda: fb._gemm(fb._STORED, fb._INPUT_GRAD, fb._a(dc), w_t,
-                                                  rows, x.device, out=dx, aux0=dy, aux1=y,
-                                                  add_g3=not proj)))
+    parts.append(("dx gemm", lambda: fb._gemm(fb._STORED, fb._INPUT_GRAD, fb._a(dc), w1, rows,
+                                              x.device, w2=wp, out=dx, aux0=dy, aux1=y,
+                                              add_g3=not proj)))
     parts.append(("dw1 wgrad", lambda: fb._wgrad(fb._STORED, fb._a(x), c, dc, f, rows)))
     if proj:
         parts.append(("dwp wgrad", lambda: fb._wgrad(fb._STORED, fb._a(x), c, dc, n4, rows,
@@ -461,28 +472,29 @@ def fb_phase2(dev):
         again = fb.k3(*ops["k3"])
         if not all(torch.equal(a, b) for a, b in zip(fb.k3(*ops["k3"]), again)):
             fail(f"the c3 sums of k3 differ between two launches ({label})")
-        for name in ("b2", "b4"):
+        for name in ("b1", "b2", "b3", "b4"):
             first, second = fb_bodies[name](*ops[name]), fb_bodies[name](*ops[name])
             if not all(torch.equal(a, b) for a, b in zip(first, second)):
                 fail(f"fused_block {name} differs between two launches ({label})")
         if not fb_c3_check(fb, ops["b2"]):
             fail(f"K7.2's dc3 is not the BN3 backward of K6.4's c3, bit for bit ({label})")
         del ops, out, ref, again, first, second
-    print("c3's sums, b2's and b4's outputs bit-equal over repeated launches at each shape "
-          "(deterministic reductions); K7.2's dc3 bit-equal to the BN3 backward of K6.4's c3")
+    print("c3's sums and the outputs of b1, b2, b3 and b4 bit-equal over repeated launches at "
+          "each shape (deterministic reductions); K7.2's dc3 bit-equal to the BN3 backward of "
+          "K6.4's c3")
     return fb_err
 
 
 def fb_launch_breakdown(dev):
-    """Each launch of K7.2 and K7.4 by CUDA events at the five block shapes,
+    """Each launch of K7.1-K7.4 by CUDA events at the five block shapes,
     and per train step (each shape times its blocks per step); returns
     ``{body: {label: ms per step}}``."""
     from rxtpu_torch.ops import fused_block as fb
 
-    per_step = {"b2": {}, "b4": {}}
+    per_step = {"b1": {}, "b2": {}, "b3": {}, "b4": {}}
     for label, plane, c, f, proj, mult in FB_SHAPES:
         ops = fb_operands(B * G, plane, c, f, proj, 8, dev)
-        for name in ("b2", "b4"):
+        for name in per_step:
             parts = fb_launch_parts(fb, name, ops[name])
             for part, fn in parts:
                 fn()  # dc3 / dc before the launches that read them
@@ -546,7 +558,7 @@ def main() -> int:
                 entry = "" if m is None else m.group(1) + (f"<{','.join(targs)}>" if targs else "")
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
-    if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and K7.2's and K7.4's launches
+    if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and K7.1-K7.4's launches
         fb_phase2(dev)
         fb_launch_breakdown(dev)
         print(card)

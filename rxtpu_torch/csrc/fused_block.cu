@@ -15,38 +15,42 @@
 // r + dy*W + dx only where (y+dy, x+dx) lies inside the view's plane, and 0
 // elsewhere (SAME padding), so no tap reads across views.
 //
-// Two families of kernels. The wmma templates serve K6.1-K6.4, K7.1 and
-// K7.3's adjoint conv and dw2; a pipelined 1x1 mainloop serves K7.2 and
-// K7.4 (dc3, g2, dw3; dcp, dx, dw1, dwp).
+// Two families of kernels. The wmma template serves K6.1-K6.4 only; a
+// pipelined mainloop serves every backward body: K7.1 (the BN3 sums), K7.2
+// (dc3, g2, dw3), K7.3 (g1 and dw2 over the 3x3 taps) and K7.4 (dcp, dx,
+// dw1, dwp).
 //
 // gemm_kernel<MODE, EPI>: out[r, n] = sum_k A(r, k) W[k, n] over a 64x64 tile
 // of rows and output channels, W [K, N] bf16 row major. A(r, k) is
 //   kStored      src[r, k];
 //   kBnRelu      bf16(relu(src[r, k]*scale[k] + shift[k])) (a1 or a2);
 //   kTapBnRelu   the same at the 3x3 neighbour of tap k / kc, channel k % kc
-//                (taps in (ky, kx) row-major order, as rxtpu's _OFFSETS);
-//   kTapAdjoint  src at the neighbour across the negated offset (the
-//                transposed conv: W holds w2[tap] transposed per tap).
+//                (taps in (ky, kx) row-major order, as rxtpu's _OFFSETS).
 // The epilogue (EPI) stores bf16 values, and for the BN sums writes one
 // partial sum per (64-row tile, channel), reduced afterwards in a fixed
 // order by reduce_kernel.
 //
-// wgrad_kernel<kTapBnRelu>: dW[tap, k, n] = sum_r A(r, k) D(r, n) over a
-// chunk of 2048 rows (A as above with a fixed tap, D a stored bf16 slab);
-// one f32 partial per chunk, reduced by reduce_kernel in chunk order.
-//
-// pipe_gemm_kernel<MODE, EPI, BN, WNK> (kStored or kBnRelu A, the BN
-// backward, ReLU-gradient and input-gradient epilogues) and
-// pipe_wgrad_kernel<MODE, TK, TN>: the same functions for 1x1 operands on
-// Hopper's copy engines. A 128 x BN tile (BN 256 where N allows, so A and
-// its prologue are read N / 256 times), eight warps, a cp.async ring of
-// A and W stages, the kBnRelu prologue applied once per staged 16-byte
-// chunk, ldmatrix + mma.sync m16n8k16; the epilogue's aux tiles (dy and y,
-// or c2) come in by bulk copies on an mbarrier while the products run, the
-// epilogue works on the accumulator registers with its per-channel vectors
-// read once, and the output leaves through shared memory in 16-byte rows.
-// Weight gradients use the same ring over rows, 64-128 x 128 output tiles
-// and enough row chunks to fill the card.
+// pipe_gemm_kernel<MODE, EPI, BN, WNK, BM> (kStored, kBnRelu or kTapAdjoint
+// A; the BN-sums, BN-backward, ReLU-gradient and input-gradient epilogues)
+// and pipe_wgrad_kernel<MODE, TK, TN> (kStored, kBnRelu or kTapBnRelu A):
+// the same functions on Hopper's copy engines. A BM x BN tile (BN 256
+// where N allows, so A and its prologue are read N / 256 times; for the
+// adjoint 3x3 conv 128 x 128, so stage 4's 512 channels still make four
+// column tiles), eight warps, a cp.async ring of A and W stages, the kBnRelu
+// prologue applied once per staged 16-byte chunk, ldmatrix + mma.sync
+// m16n8k16; the epilogue's aux tiles (dy and y, or c) come in by bulk
+// copies on an mbarrier while the products run, the epilogue works on the
+// accumulator registers with its per-channel vectors read once, and the
+// output leaves through shared memory in 16-byte rows (kBnSums stores
+// none: K7.1 is dc3's GEMM with a sums epilogue). kTapAdjoint (g1 =
+// sum_tap dc2[neighbour across -offset] w2[tap]^T) reads w2 [9, F, F] as
+// stored, W^T per tap, and each A chunk straight from dc2 at its row's
+// neighbour, zero-filled outside the plane: each thread works out its
+// rows' pixels once and the stage's tap from k. Weight gradients use the
+// same ring over rows, 64-128 x 128 output tiles and enough row chunks
+// (times 9 taps for dw2) to fill the card; dw2's tap loader follows each
+// row's pixel as the ring walks the rows, and its zero-filled chunks skip
+// the BN-ReLU prologue (a1 is zero-padded after the BN-ReLU).
 //
 // bn_backward_kernel: dc = bf16(k*(g - da - ((c - mean)*inv)*db)), the BN
 // backward of _b3_kernel (dc2) and _b4_kernel (dc1), 8 channels (16 bytes)
@@ -72,14 +76,18 @@
 // Bound: at ResNet-50's shapes (V = 48 views) most bodies move more bytes
 // than their tensor-core time: e.g. K6.1 at a stage-1 identity block reads
 // 203.5 MB of x and writes 50.9 MB of c1, 0.076 ms at 3.35 TB/s, against
-// 13.0 GFLOP, 0.013 ms at 989 TFLOP/s; the 3x3 bodies (K6.2, K7.3) are near
-// the balance. K7.2 and K7.4 are bound by bytes too (dc3 alone at a
-// stage-1 block: c2, dy and y read, dc3 written, 661 MB = 0.197 ms against
-// 0.04 ms of products), so their kernels keep copies in flight rather than
-// reaching for wgmma's rate. The wmma templates stage their tiles through
-// shared memory without a copy pipeline, re-read A once per 64-wide column
-// tile, and materialize dc2, dc1, dcp and dc3 in device memory (the last
-// three still so); chip_smoke.py prints each body's time beside its bound.
+// 13.0 GFLOP, 0.013 ms at 989 TFLOP/s. K7.1, K7.2 and K7.4 are bound by
+// bytes too (K7.1 at a stage-1 block reads dy, y and c2, 458 MB = 0.137 ms,
+// against 13.0 GFLOP = 0.013 ms; dc3 alone: c2, dy and y read, dc3 written,
+// 661 MB = 0.197 ms against 0.04 ms of products), so their kernels keep
+// copies in flight rather than reaching for wgmma's rate. The 3x3 bodies
+// are near the balance or past it: K7.3 at a stage-1 block does 58.6
+// GFLOP (0.059 ms) against 204 MB (0.061 ms), at stage 4 65.2 GFLOP (0.066
+// ms) against 43 MB; mma.sync from a cp.async ring is its rate, and dc2
+// still goes through device memory. The wmma template (K6) stages its tiles
+// through shared memory without a copy pipeline and re-reads A once per
+// 64-wide column tile; dc2, dc1, dcp and dc3 are materialized in device
+// memory. chip_smoke.py prints each body's time beside its bound.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -98,7 +106,6 @@ constexpr int kThreads = 128;     // four warps, each a 32x32 quarter of the til
 constexpr int kLdA = kBK + 8;     // staged A row pitch (bf16)
 constexpr int kLdW = kBN + 8;     // staged W row pitch (bf16)
 constexpr int kLdC = kBN + 4;     // staged result row pitch (f32)
-constexpr int kLdT = 64 + 8;      // weight-gradient tiles' row pitch (bf16)
 constexpr int kReduceLanes = 8;   // partial sums per output, per reduce block
 constexpr int kReduceGroup = 64;  // partials summed by one block before a second pass
 
@@ -210,21 +217,17 @@ __device__ __forceinline__ float bn_relu(float v, float scale, float shift) {
 }
 
 // 8 consecutive channels k..k+7 of A at row r (pixel (y, x)); zero past the
-// slab's end and, in the tap modes, where the neighbour lies outside the plane
+// slab's end and, in the tap mode, where the neighbour lies outside the plane
 template <int MODE>
 __device__ __forceinline__ uint4 a_chunk(const ASrc& a, long long rows, long long r, int k) {
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   if (r >= rows) return zero;
   long long src = r;
   int f = k;
-  if (MODE == kTapBnRelu || MODE == kTapAdjoint) {
+  if (MODE == kTapBnRelu) {
     const int tap = k / a.kc;
     f = k - tap * a.kc;
-    int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    if (MODE == kTapAdjoint) {
-      dy = -dy;
-      dx = -dx;
-    }
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
     const int plane = a.height * a.width;
     const int p = static_cast<int>(r % plane);
     const int y = p / a.width + dy, x = p % a.width + dx;
@@ -247,12 +250,6 @@ __device__ __forceinline__ uint4 a_chunk(const ASrc& a, long long rows, long lon
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// g3 = dy * [y > 0] in bf16 (dy or a signed zero), as f32
-__device__ __forceinline__ float g3_at(const GemmArgs& g, long long i) {
-  const float dy = __bfloat162float(g.aux0[i]);
-  return __bfloat162float(g.aux1[i]) > 0.0f ? dy : __fmul_rn(dy, 0.0f);
 }
 
 template <int MODE, int EPI>
@@ -319,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
   }
   __syncthreads();
 
-  constexpr bool kSums = EPI == kStoreStats || EPI == kStats || EPI == kBnSums || EPI == kReluGrad;
+  constexpr bool kSums = EPI == kStoreStats || EPI == kStats;
   for (int e = tid; e < kBM * kBN; e += kThreads) {
     const int row = e / kBN, col = e % kBN;
     const long long r = m0 + row;
@@ -342,19 +339,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
             __fadd_rn(__fmul_rn(round_bf16(acc_v), __ldg(g.e_scale + n)), __ldg(g.e_shift + n)));
         const float res = __bfloat162float(g.aux0[ia]);
         g.out[o] = __float2bfloat16_rn(fmaxf(__fadd_rn(bn3, res), 0.0f));
-      } else if (EPI == kBnSums) {
-        const float g3 = g3_at(g, ia);
-        const float xhat = __fmul_rn(__fsub_rn(round_bf16(acc_v), __ldg(g.e_mean + n)),
-                                     __ldg(g.e_inv + n));
-        v1 = g3;
-        v2 = __fmul_rn(g3, xhat);
-      } else if (EPI == kReluGrad) {
-        const float c = __bfloat162float(g.aux0[ia]);
-        const float a = bn_relu(c, __ldg(g.e_scale + n), __ldg(g.e_shift + n));
-        const bf16 gb = __float2bfloat16_rn(__fmul_rn(acc_v, a > 0.0f ? 1.0f : 0.0f));
-        g.out[o] = gb;
-        v1 = __bfloat162float(gb);
-        v2 = __fmul_rn(v1, __fmul_rn(__fsub_rn(c, __ldg(g.e_mean + n)), __ldg(g.e_inv + n)));
       }
     }
     if (kSums) {
@@ -371,67 +355,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
     for (int row = 0; row < kBM; ++row) s = __fadd_rn(s, src[row * kLdC + col]);
     float* part = tid < kBN ? g.part0 : g.part1;
     part[static_cast<long long>(blockIdx.y) * g.n + n0 + col] = s;
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) wgrad_kernel(const WgradArgs g) {
-  __shared__ __align__(128) bf16 at[kBK * kLdT];  // A rows x 64 input channels
-  __shared__ __align__(128) bf16 dt[kBK * kLdT];  // D rows x 64 output channels
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int n0 = blockIdx.x * 64, k0 = blockIdx.y * 64;
-  const int tap = blockIdx.z % g.taps;
-  const int chunk = blockIdx.z / g.taps;
-  const long long r_begin = static_cast<long long>(chunk) * g.chunk_rows;
-  long long r_end = r_begin + g.chunk_rows;
-  if (r_end > g.rows) r_end = g.rows;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-  for (long long r0 = r_begin; r0 < r_end; r0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kThreads * i;
-      const int rr = c / 8, q = (c % 8) * 8;
-      const long long r = r0 + rr;
-      *reinterpret_cast<uint4*>(at + rr * kLdT + q) =
-          a_chunk<MODE>(g.a, r_end, r, tap * g.a.kc + k0 + q);
-      uint4 d = make_uint4(0u, 0u, 0u, 0u);
-      if (r < r_end) d = *reinterpret_cast<const uint4*>(g.d + r * g.ldd + g.d_col + n0 + q);
-      *reinterpret_cast<uint4*>(dt + rr * kLdT + q) = d;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], at + kk * kLdT + wm * 32 + i * 16, kLdT);
-        wmma::load_matrix_sync(fb[i], dt + kk * kLdT + wn * 32 + i * 16, kLdT);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* part = g.part + (static_cast<long long>(chunk) * g.taps + tap) * g.k * g.n;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(
-          part + static_cast<long long>(k0 + wm * 32 + i * 16) * g.n + n0 + wn * 32 + j * 16,
-          acc[i][j], g.n, wmma::mem_row_major);
-    }
   }
 }
 
@@ -634,19 +557,22 @@ __device__ __forceinline__ void bn_relu_chunk(bf16* p, const float* scale, const
 // of (A [BM][40], W [32][BN + 8] or W^T [BN][32], its 16-byte chunks
 // XOR-swizzled by row) stages, which the epilogue reuses to stage its bf16
 // output tile; the aux tiles (dy and y, or c) [BM][BN + 8]; the two warp
-// rows' column sums; the aux tiles' mbarrier. The ring takes as many
-// stages as fit, up to four. Where the accumulators leave room for two
-// blocks per SM (BM = 64, or BN <= 128), a block keeps within half an SM's
-// shared memory, so one block's epilogue overlaps the other's copies.
+// rows' column sums (in the ring for kBnSums, which stores no tile); the
+// aux tiles' mbarrier. The ring takes as many stages as fit, up to four.
+// Where the accumulators leave room for two blocks per SM (BM = 64, or BN
+// <= 128), a block keeps within half an SM's shared memory, so one block's
+// epilogue overlaps the other's copies.
 template <int EPI, int BN, bool WNK, int BM>
 struct PipeGemmSmem {
   static constexpr bool kTwoPerSm = BM == 64 || BN <= 128;  // registers allow two blocks per SM
+  static constexpr bool kStore = EPI != kBnSums;            // an output tile leaves the block
   static constexpr int kLdW = WNK ? kPipeBK : BN + 8;
   static constexpr int kLdX = BN + 8;
-  static constexpr int kAux = (EPI == kBnBackward || EPI == kInputGrad) ? 2 : 1;
+  static constexpr int kAux = (EPI == kBnBackward || EPI == kInputGrad || EPI == kBnSums) ? 2 : 1;
   static constexpr int kStage = BM * kLdPA + (WNK ? BN : kPipeBK) * kLdW;  // bf16 elements
   static constexpr int kAuxTile = BM * kLdX;                               // bf16 elements
-  static constexpr int kSums = EPI == kReluGrad ? 2 * 2 * BN * 4 : 0;
+  static constexpr int kSumBytes = 2 * 2 * BN * 4;
+  static constexpr int kSums = EPI == kReluGrad ? kSumBytes : 0;  // bytes beside the ring
   static constexpr int kFixed = kAux * kAuxTile * 2 + kSums + 8;  // bytes besides the ring
   // as many stages as fit, up to four
   static constexpr int kFit = ((kTwoPerSm ? kPipeSmem2 : 232448) - kFixed) / (kStage * 2);
@@ -655,33 +581,41 @@ struct PipeGemmSmem {
   static constexpr int kBar = kRing + kAux * kAuxTile * 2 + kSums;
   static constexpr int kBytes = kBar + 8;
   static_assert(kStages >= 2, "a ring of at least two stages");
-  static_assert(kAuxTile * 2 <= kRing, "the output tile is staged in the ring");
+  static_assert(kStore ? kAuxTile * 2 <= kRing : kSumBytes <= kRing,
+                "the output tile, or kBnSums's column sums, lie in the ring");
 };
 
-// out[r, n] = sum_k A(r, k) W[k, n] over a BM x BN tile, A stored or
-// bf16(relu(c*scale + shift)) (kBnRelu, applied once per staged chunk), W
+// out[r, n] = sum_k A(r, k) W[k, n] over a BM x BN tile, A stored,
+// bf16(relu(c*scale + shift)) (kBnRelu, applied once per staged chunk) or
+// the 3x3 adjoint's taps (kTapAdjoint: src at each row's neighbour across
+// the negated offset of tap k / kc, zero-filled outside the plane); W
 // [K, N] row major or, with WNK, read as stored in W^T [N, K] (w3 for g2;
-// w1 and wp side by side for the projection's dx), K a multiple of 32.
-// Eight warps each own a BM/2 x BN/4 part of the tile: ldmatrix
-// fragments, mma.sync m16n8k16 over k in ascending 16-wide steps from a
-// zero accumulator. A and W arrive through a cp.async ring; the
-// epilogue's aux tiles are requested first, by bulk copies on an mbarrier,
-// so their bytes are in flight during the products and the ring never
-// waits for them. The epilogue reads its columns' per-channel vectors once,
-// works on the accumulator registers, stages the bf16 tile in shared memory
-// and stores it in 16-byte rows; its column sums go lanes (shuffles) ->
-// warp rows -> one pair per (BM-row tile, channel), in a fixed order.
+// w1 and wp side by side for the projection's dx; for kTapAdjoint the
+// tap's w2[tap] [N, kc]), K a multiple of 32. Eight warps each own a
+// BM/2 x BN/4 part of the tile: ldmatrix fragments, mma.sync m16n8k16 over
+// k in ascending 16-wide steps from a zero accumulator. A and W arrive
+// through a cp.async ring; the epilogue's aux tiles are requested first,
+// by bulk copies on an mbarrier, so their bytes are in flight during the
+// products and the ring never waits for them. The epilogue reads its
+// columns' per-channel vectors once, works on the accumulator registers,
+// stages the bf16 tile in shared memory and stores it in 16-byte rows (no
+// tile for kBnSums); its column sums go lanes (shuffles) -> warp rows ->
+// one pair per (BM-row tile, channel), in a fixed order.
 template <int MODE, int EPI, int BN, bool WNK, int BM>
 __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::kTwoPerSm ? 2 : 1)
     pipe_gemm_kernel(const GemmArgs g) {
   using S = PipeGemmSmem<EPI, BN, WNK, BM>;
+  static_assert(MODE != kTapAdjoint || WNK, "the adjoint reads w2[tap] as stored");
   constexpr int MT = BM / 32;  // m16 tiles per warp (BM / 2 rows)
   constexpr int NT = BN / 32;  // n8 tiles per warp (BN / 4 columns)
   constexpr int kCpr = BN / 8; // 16-byte chunks per tile row
+  constexpr int kArows = BM * 4 / kPipeThreads;  // A rows this thread copies in every stage
+  constexpr bool kSumEpi = EPI == kReluGrad || EPI == kBnSums;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* aux = reinterpret_cast<bf16*>(smem + S::kRing);
-  float* sums = reinterpret_cast<float*>(smem + S::kRing + S::kAux * S::kAuxTile * 2);
+  float* sums = reinterpret_cast<float*>(S::kStore ? smem + S::kRing + S::kAux * S::kAuxTile * 2
+                                                   : smem);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -691,22 +625,54 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
   const int n_aux = EPI == kInputGrad && !g.add_g3 ? 0 : S::kAux;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::kBar);
 
+  // kTapAdjoint: the pixels (y, x) of this thread's A rows in their plane,
+  // worked out once in 32 bits (y = -2 past the slab, so that no neighbour
+  // lies inside)
+  int py[kArows], px[kArows];
+  if (MODE == kTapAdjoint) {
+    const int plane = g.a.height * g.a.width;
+#pragma unroll
+    for (int i = 0; i < kArows; ++i) {
+      const int r = static_cast<int>(m0) + (tid >> 2) + 64 * i;
+      const int p = r % plane, y = p / g.a.width;
+      py[i] = r < g.rows ? y : -2;
+      px[i] = p - y * g.a.width;
+    }
+  }
+
   auto load_stage = [&](int slot, int kt) {
     const int k0 = kt * kPipeBK;
     bf16* as = ring + slot * S::kStage;
     bf16* ws = as + BM * kLdPA;
+    // kTapAdjoint: a stage's 32 k lie in one tap (kc a multiple of 64)
+    const int tap = MODE == kTapAdjoint ? k0 / g.a.kc : 0;
+    const int j0 = k0 - tap * g.a.kc;
+    if (MODE == kTapAdjoint) {  // A: each row's neighbour across the negated offset, or zeros
+      const int dy = 1 - tap / 3, dx = 1 - tap % 3;
+      const long long off = static_cast<long long>(dy * g.a.width + dx) * g.a.ld + g.a.col + j0;
 #pragma unroll
-    for (int i = 0; i < BM * 4 / kPipeThreads; ++i) {  // A: BM rows x 4 chunks
-      const int c = tid + kPipeThreads * i;
-      const int row = c >> 2, q = (c & 3) * 8;
-      const long long r = m0 + row;
-      const bool ok = r < g.rows;
-      cp_async16(as + row * kLdPA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+      for (int i = 0; i < kArows; ++i) {
+        const int row = (tid >> 2) + 64 * i, q = (tid & 3) * 8;
+        const bool ok = static_cast<unsigned>(py[i] + dy) < static_cast<unsigned>(g.a.height) &&
+                        static_cast<unsigned>(px[i] + dx) < static_cast<unsigned>(g.a.width);
+        cp_async16(as + row * kLdPA + q, g.a.ptr + (ok ? (m0 + row) * g.a.ld + off + q : 0), ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kArows; ++i) {  // A: BM rows x 4 chunks
+        const int c = tid + kPipeThreads * i;
+        const int row = c >> 2, q = (c & 3) * 8;
+        const long long r = m0 + row;
+        const bool ok = r < g.rows;
+        cp_async16(as + row * kLdPA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+      }
     }
-    if (WNK) {  // W^T: BN rows x 4 chunks, from w or w2
+    if (WNK) {  // W^T: BN rows x 4 chunks, from w or w2, or from w2[tap] [n, kc]
       const bool first = k0 < g.k_split;
-      const bf16* src = first ? g.w + k0 : g.w2 + (k0 - g.k_split);
-      const int ld = first ? g.k_split : g.k - g.k_split;
+      const bf16* src = MODE == kTapAdjoint ? g.w + static_cast<long long>(tap) * g.n * g.a.kc + j0
+                        : first             ? g.w + k0
+                                            : g.w2 + (k0 - g.k_split);
+      const int ld = MODE == kTapAdjoint ? g.a.kc : first ? g.k_split : g.k - g.k_split;
 #pragma unroll
       for (int i = 0; i < BN * 4 / kPipeThreads; ++i) {
         const int c = tid + kPipeThreads * i;
@@ -759,7 +725,7 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
     const bf16* ws = as + BM * kLdPA;
     if (MODE == kBnRelu) {  // this thread's own chunks, landed: the prologue, once
 #pragma unroll
-      for (int i = 0; i < BM * 4 / kPipeThreads; ++i) {
+      for (int i = 0; i < kArows; ++i) {
         // rows past the slab are transformed too: their outputs are never stored
         const int k = kt * kPipeBK + (tid & 3) * 8;
         bn_relu_chunk<true>(as + ((tid >> 2) + 64 * i) * kLdPA + (tid & 3) * 8, g.a.scale + k,
@@ -812,7 +778,7 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
     const float2 zero2 = make_float2(0.0f, 0.0f);
     float2 v_mean = zero2, v_inv = zero2, v_k = zero2, v_da = zero2, v_db = zero2,
            v_scale = zero2, v_shift = zero2;
-    if (EPI == kBnBackward || EPI == kReluGrad) {
+    if (EPI == kBnBackward || EPI == kReluGrad || EPI == kBnSums) {
       v_mean = __ldg(reinterpret_cast<const float2*>(g.e_mean + n));
       v_inv = __ldg(reinterpret_cast<const float2*>(g.e_inv + n));
     }
@@ -854,6 +820,20 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
             }
           }
           *reinterpret_cast<__nv_bfloat162*>(stage + o) = __floats2bfloat162_rn(out2[0], out2[1]);
+        } else if (EPI == kBnSums) {  // sums of g3 and g3*xhat, xhat = (bf16(acc) - mean)*inv
+          const float2 dy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
+          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux1 + o));
+          const float g3[2] = {y.x > 0.0f ? dy.x : __fmul_rn(dy.x, 0.0f),
+                               y.y > 0.0f ? dy.y : __fmul_rn(dy.y, 0.0f)};
+          if (m0 + row < g.rows) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float xhat = __fmul_rn(__fsub_rn(round_bf16(acc2[e]), e ? v_mean.y : v_mean.x),
+                                           e ? v_inv.y : v_inv.x);
+              s1[e] = __fadd_rn(s1[e], g3[e]);
+              s2[e] = __fadd_rn(s2[e], __fmul_rn(g3[e], xhat));
+            }
+          }
         } else {  // kReluGrad
           const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
           const float cv[2] = {c.x, c.y};
@@ -877,7 +857,7 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
         }
       }
     }
-    if (EPI == kReluGrad) {
+    if (kSumEpi) {
 #pragma unroll
       for (int m = 4; m < 32; m <<= 1) {  // the lanes that share these columns
 #pragma unroll
@@ -896,13 +876,14 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
     }
   }
   __syncthreads();
-  if (EPI == kReluGrad) {  // warp row 0, then warp row 1: one partial per tile and channel
+  if (kSumEpi) {  // warp row 0, then warp row 1: one partial per tile and channel
     for (int i = tid; i < 2 * BN; i += kPipeThreads) {
       const int which = i / BN, col = i % BN;
       const float v = __fadd_rn(sums[which * BN + col], sums[(2 + which) * BN + col]);
       g.part0[(static_cast<long long>(blockIdx.y) * 2 + which) * g.n + n0 + col] = v;
     }
   }
+  if (!S::kStore) return;
 #pragma unroll 4
   for (int i = 0; i < BM * kCpr / kPipeThreads; ++i) {
     const int c = tid + kPipeThreads * i;
@@ -917,11 +898,15 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
 
 // dW[k, n] = sum_r A(r, k) D(r, n) over the rows of one chunk, for a TK x TN
 // tile of (k, n): A stored or bf16(relu(c*scale + shift)) (applied once per
-// staged chunk), D a stored bf16 slab. Eight warps each own a TK/2 x TN/4
-// part; both operands arrive [rows][channels] through a cp.async ring of up
-// to six stages and feed mma.sync through ldmatrix.trans. One f32 partial
-// per chunk, written from the registers, reduced by reduce_kernel in chunk
-// order.
+// staged chunk), D a stored bf16 slab; with kTapBnRelu, per 3x3 tap
+// (blockIdx.z % taps), A is bf16(relu(c*scale + shift)) at each row's
+// neighbour across the tap's offset and 0 where that lies outside the
+// plane (the zero-filled chunk skips the prologue: zero after the
+// BN-ReLU, as the plain version pads a1). Eight warps each own a TK/2 x
+// TN/4 part; both operands arrive [rows][channels] through a cp.async ring
+// of up to six stages and feed mma.sync through ldmatrix.trans. One f32
+// partial per (chunk, tap), written from the registers, reduced by
+// reduce_kernel in chunk order.
 // its ring: as many stages as fit two blocks to an SM, up to six
 template <int TK, int TN>
 struct WgradRing {
@@ -932,11 +917,15 @@ struct WgradRing {
 
 template <int MODE, int TK, int TN>
 __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const WgradArgs g) {
+  constexpr bool kTap = MODE == kTapBnRelu;
+  constexpr bool kPrologue = MODE == kBnRelu || kTap;
   constexpr int kLdA = TK + 8, kLdD = TN + 8;
   constexpr int kWgStages = WgradRing<TK, TN>::kStages;
   constexpr int kStage = kWgBR * (kLdA + kLdD);  // bf16 elements
   constexpr int MT = TK / 32, NT = TN / 32;
   constexpr int kCprA = TK / 8, kCprD = TN / 8;
+  constexpr int kArows = kWgBR * kCprA / kPipeThreads;  // A chunks this thread copies per stage
+  static_assert(kWgStages * kArows <= 32, "one validity bit per (slot, chunk)");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   float* vec = reinterpret_cast<float*>(smem + kWgStages * kStage * 2);  // scale [TK], shift [TK]
@@ -944,30 +933,61 @@ __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const Wgrad
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int n0 = blockIdx.x * TN, k0 = blockIdx.y * TK;
-  if (MODE == kBnRelu) {  // this tile's channels, read by the prologue of every stage
+  if (kPrologue) {  // this tile's channels, read by the prologue of every stage
     for (int i = tid; i < TK; i += kPipeThreads) {
       vec[i] = g.a.scale[k0 + i];
       vec[TK + i] = g.a.shift[k0 + i];
     }
     __syncthreads();
   }
-  const int chunk = blockIdx.z;
+  const int tap = blockIdx.z % g.taps, chunk = blockIdx.z / g.taps;
   const long long r_begin = static_cast<long long>(chunk) * g.chunk_rows;
   long long r_end = r_begin + g.chunk_rows;
   if (r_end > g.rows) r_end = g.rows;
   const int steps = static_cast<int>((r_end - r_begin + kWgBR - 1) / kWgBR);
+
+  // kTapBnRelu: the tap's offset; the pixels (y, x) of this thread's A rows
+  // in their plane, in 32 bits (rows < 2^31), advanced by a stage's rows at
+  // each load; which of its chunks hold a neighbour, one bit per (slot, chunk)
+  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+  int py[kArows], px[kArows];
+  unsigned inside = 0;
+  if (kTap) {
+    const int plane = g.a.height * g.a.width;
+#pragma unroll
+    for (int i = 0; i < kArows; ++i) {
+      const int p = (static_cast<int>(r_begin) + (tid + kPipeThreads * i) / kCprA) % plane;
+      py[i] = p / g.a.width;
+      px[i] = p - py[i] * g.a.width;
+    }
+  }
 
   auto load_stage = [&](int slot, int step) {
     const long long r0 = r_begin + static_cast<long long>(step) * kWgBR;
     bf16* as = ring + slot * kStage;
     bf16* ds = as + kWgBR * kLdA;
 #pragma unroll
-    for (int i = 0; i < kWgBR * kCprA / kPipeThreads; ++i) {
+    for (int i = 0; i < kArows; ++i) {
       const int c = tid + kPipeThreads * i;
       const int rr = c / kCprA, q = (c % kCprA) * 8;
       const long long r = r0 + rr;
-      const bool ok = r < r_end;
-      cp_async16(as + rr * kLdA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+      if (kTap) {
+        const bool ok = r < r_end &&
+                        static_cast<unsigned>(py[i] + dy) < static_cast<unsigned>(g.a.height) &&
+                        static_cast<unsigned>(px[i] + dx) < static_cast<unsigned>(g.a.width);
+        const unsigned bit = 1u << (slot * kArows + i);
+        inside = ok ? inside | bit : inside & ~bit;
+        const long long src = ok ? r + dy * g.a.width + dx : 0;
+        cp_async16(as + rr * kLdA + q, g.a.ptr + src * g.a.ld + g.a.col + k0 + q, ok);
+        px[i] += kWgBR;  // the next stage's row
+        while (px[i] >= g.a.width) {
+          px[i] -= g.a.width;
+          if (++py[i] == g.a.height) py[i] = 0;
+        }
+      } else {
+        const bool ok = r < r_end;
+        cp_async16(as + rr * kLdA + q, g.a.ptr + (ok ? r : 0) * g.a.ld + g.a.col + k0 + q, ok);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kWgBR * kCprD / kPipeThreads; ++i) {
@@ -998,13 +1018,15 @@ __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const Wgrad
     const int slot = step % kWgStages;
     bf16* as = ring + slot * kStage;
     const bf16* ds = as + kWgBR * kLdA;
-    if (MODE == kBnRelu) {  // this thread's own chunks, landed: the prologue, once
+    if (kPrologue) {  // this thread's own chunks, landed: the prologue, once
       const long long r0 = r_begin + static_cast<long long>(step) * kWgBR;
 #pragma unroll
-      for (int i = 0; i < kWgBR * kCprA / kPipeThreads; ++i) {
+      for (int i = 0; i < kArows; ++i) {
         const int c = tid + kPipeThreads * i;
         const int rr = c / kCprA, q = (c % kCprA) * 8;
-        if (r0 + rr < r_end) bn_relu_chunk<false>(as + rr * kLdA + q, vec + q, vec + TK + q);
+        // zero-filled chunks (past the chunk's rows, or no neighbour) stay zero
+        const bool ok = kTap ? (inside >> (slot * kArows + i)) & 1u : r0 + rr < r_end;
+        if (ok) bn_relu_chunk<false>(as + rr * kLdA + q, vec + q, vec + TK + q);
       }
     }
     __syncthreads();
@@ -1033,7 +1055,7 @@ __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const Wgrad
     }
   }
   cp_async_wait<0>();
-  float* part = g.part + static_cast<long long>(chunk) * g.k * g.n;
+  float* part = g.part + (static_cast<long long>(chunk) * g.taps + tap) * g.k * g.n;
   const int gr = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -1069,8 +1091,8 @@ int done() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
-// One GEMM of the wmma template with its prologue and epilogue (K6.1-K6.4,
-// K7.1, K7.3's adjoint); grid (n / 64, ceil(rows / 64)).
+// One GEMM of the wmma template with its prologue and epilogue (K6.1-K6.4);
+// grid (n / 64, ceil(rows / 64)).
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
 // cudaErrorInvalidValue for a (mode, epi) pair that no body uses.
 extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
@@ -1089,24 +1111,8 @@ extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
   RXTPU_FB_CASE(kBnRelu, kStats)           // K6.3 c3 sums
   RXTPU_FB_CASE(kStored, kResidual)        // K6.4 projection residual
   RXTPU_FB_CASE(kBnRelu, kOutput)          // K6.4 y
-  RXTPU_FB_CASE(kBnRelu, kBnSums)          // K7.1 BN3 sums
-  RXTPU_FB_CASE(kStored, kBnSums)          // K7.1 projection sum
-  RXTPU_FB_CASE(kTapAdjoint, kReluGrad)    // K7.3 g1
 #undef RXTPU_FB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K7.3's per-tap weight gradient dw2 (kTapBnRelu): per-chunk partials; grid
-// (n / 64, k / 64, chunks * taps).
-extern "C" int rxtpu_fb_wgrad(const WgradArgs* args, void* stream) {
-  const WgradArgs& a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long chunks = (a.rows + a.chunk_rows - 1) / a.chunk_rows;
-  if (chunks == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(a.n / 64, a.k / 64, static_cast<unsigned>(chunks * a.taps));
-  if (a.mode != kTapBnRelu) return static_cast<int>(cudaErrorInvalidValue);
-  wgrad_kernel<kTapBnRelu><<<grid, kThreads, 0, st>>>(a);
-  return done();
 }
 
 // out[i] = sum_c part[c * size + i] over c in [0, chunks), in a fixed order;
@@ -1147,7 +1153,7 @@ extern "C" int rxtpu_fb_bn_backward(const BnBwdArgs* args, void* stream) {
 namespace {
 
 template <int MODE, int EPI, bool WNK, int BM, int BN>
-int launch_pipe_gemm(const GemmArgs& a, cudaStream_t st) {
+int launch_pipe_gemm_tile(const GemmArgs& a, cudaStream_t st) {
   constexpr int kBytes = PipeGemmSmem<EPI, BN, WNK, BM>::kBytes;
   static bool smem_set[kMaxDevices] = {};
   const int err = set_smem(pipe_gemm_kernel<MODE, EPI, BN, WNK, BM>, kBytes, smem_set);
@@ -1157,16 +1163,18 @@ int launch_pipe_gemm(const GemmArgs& a, cudaStream_t st) {
   return done();
 }
 
-// the widest column tile that divides n: A and its prologue are read n / BN
-// times
-template <int MODE, int EPI, bool WNK, int BM>
+// the widest column tile up to kMaxBN that divides n: A and its prologue
+// are read n / BN times
+template <int MODE, int EPI, bool WNK, int BM, int kMaxBN = 256>
 int launch_pipe_gemm(const GemmArgs& a, cudaStream_t st) {
   if (WNK && (a.k_split % kPipeBK != 0 || a.k_split > a.k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a.n % 256 == 0) return launch_pipe_gemm<MODE, EPI, WNK, BM, 256>(a, st);
-  if (a.n % 128 == 0) return launch_pipe_gemm<MODE, EPI, WNK, BM, 128>(a, st);
-  return launch_pipe_gemm<MODE, EPI, WNK, BM, 64>(a, st);
+  if constexpr (kMaxBN >= 256) {
+    if (a.n % 256 == 0) return launch_pipe_gemm_tile<MODE, EPI, WNK, BM, 256>(a, st);
+  }
+  if (a.n % 128 == 0) return launch_pipe_gemm_tile<MODE, EPI, WNK, BM, 128>(a, st);
+  return launch_pipe_gemm_tile<MODE, EPI, WNK, BM, 64>(a, st);
 }
 
 template <int MODE, int TK, int TN>
@@ -1175,7 +1183,8 @@ int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
   static bool smem_set[kMaxDevices] = {};
   const int err = set_smem(pipe_wgrad_kernel<MODE, TK, TN>, kBytes, smem_set);
   if (err != 0) return err;
-  pipe_wgrad_kernel<MODE, TK, TN><<<dim3(a.n / TN, a.k / TK, chunks), kPipeThreads, kBytes, st>>>(a);
+  pipe_wgrad_kernel<MODE, TK, TN>
+      <<<dim3(a.n / TN, a.k / TK, chunks * a.taps), kPipeThreads, kBytes, st>>>(a);
   return done();
 }
 
@@ -1191,16 +1200,28 @@ int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
 
 }  // namespace
 
-// One GEMM on the pipelined mainloop (K7.2's dc3 and g2, K7.4's dcp and
-// dx); grid (n / BN, ceil(rows / BM)), BM 128 for g2, whose one pair of
-// partial sums per (128-row tile, channel) goes to part0 [tiles, 2, n], and
-// 64 for the others. k a
-// multiple of 32, n of 64; g2 and dx read W^T [n, k] as stored.
+// One GEMM on the pipelined mainloop (K7.1's BN3 sums, K7.2's dc3 and g2,
+// K7.3's g1, K7.4's dcp and dx); grid (n / BN, ceil(rows / BM)), BM 128
+// for g2 and g1 and 64 for the others; the epilogues with sums write one
+// pair per (BM-row tile, channel) to part0 [tiles, 2, n]. k a multiple of 32, n of 64; g2, g1 and dx read W^T [n, k]
+// as stored, g1 per tap from w2 [9, n, kc] (k = 9 kc, kc a multiple of 64).
 extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
   const GemmArgs& a = *args;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.rows == 0) return static_cast<int>(cudaSuccess);
   if (a.k % kPipeBK != 0 || a.n % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.mode == kBnRelu && a.epi == kBnSums) {  // K7.1 BN3 sums: dc3's GEMM, W = w3
+    return launch_pipe_gemm<kBnRelu, kBnSums, false, 64>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kBnSums) {  // K7.1 projection sums, W = wp
+    return launch_pipe_gemm<kStored, kBnSums, false, 64>(a, st);
+  }
+  if (a.mode == kTapAdjoint && a.epi == kReluGrad) {  // K7.3 g1, W^T = w2[tap]
+    if (a.a.kc % 64 != 0 || a.k != 9 * a.a.kc || a.k_split != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_pipe_gemm<kTapAdjoint, kReluGrad, true, 128, 128>(a, st);
+  }
   if (a.mode == kBnRelu && a.epi == kBnBackward) {  // K7.2 dc3, W = w3
     return launch_pipe_gemm<kBnRelu, kBnBackward, false, 64>(a, st);
   }
@@ -1216,22 +1237,24 @@ extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A 1x1 weight gradient on the pipelined mainloop (K7.2's dw3, K7.4's dw1
-// and dwp): per-chunk partials [chunks, k, n]; grid (n / TN, k / TK,
-// chunks), k and n multiples of 64, chunk_rows of 32.
+// A weight gradient on the pipelined mainloop (K7.2's dw3, K7.4's dw1 and
+// dwp; K7.3's dw2 per tap, kTapBnRelu with taps = 9): per-(chunk, tap)
+// partials [chunks, taps, k, n]; grid (n / TN, k / TK, chunks * taps), k
+// and n multiples of 64, chunk_rows of 32.
 extern "C" int rxtpu_fb_pipe_wgrad(const WgradArgs* args, void* stream) {
   const WgradArgs& a = *args;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long chunks = (a.rows + a.chunk_rows - 1) / a.chunk_rows;
   if (chunks == 0) return static_cast<int>(cudaSuccess);
-  if (a.k % 64 != 0 || a.n % 64 != 0 || a.chunk_rows % kWgBR != 0 || a.taps != 1 ||
-      chunks > 65535) {
+  if (a.k % 64 != 0 || a.n % 64 != 0 || a.chunk_rows % kWgBR != 0 ||
+      a.taps != (a.mode == kTapBnRelu ? 9 : 1) || chunks * a.taps > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const unsigned c = static_cast<unsigned>(chunks);
   switch (a.mode) {
     case kStored: return launch_pipe_wgrad<kStored>(a, c, st);
     case kBnRelu: return launch_pipe_wgrad<kBnRelu>(a, c, st);
+    case kTapBnRelu: return launch_pipe_wgrad<kTapBnRelu>(a, c, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

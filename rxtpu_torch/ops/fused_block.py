@@ -244,13 +244,14 @@ _STORED, _BN_RELU, _TAP_BN_RELU, _TAP_ADJOINT = range(4)
  _INPUT_GRAD) = range(8)
 _SUM_EPIS = (_STORE_STATS, _STATS, _BN_SUMS, _RELU_GRAD)
 _ROW_TILE = 64  # rows per block of the template GEMM: one partial sum per tile and channel
-# the (mode, epilogue) pairs of K7.2 and K7.4, on the pipelined mainloop, and
-# its rows per block; g2 and dx read their weights transposed, as stored
-# ([n, k]: w3 for g2, w1 and wp for dx)
-_PIPE_ROW_TILES = {(_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
-                   (_STORED, _RELU_GRAD): 128, (_STORED, _INPUT_GRAD): 64}
-_WT_PAIRS = ((_STORED, _RELU_GRAD), (_STORED, _INPUT_GRAD))
-_WGRAD_CHUNK = 2048   # rows per partial of the per-tap weight gradient (dw2)
+# the (mode, epilogue) pairs of K7.1-K7.4, on the pipelined mainloop, and its
+# rows per block; g2, g1 and dx read their weights transposed, as stored
+# ([n, k]: w3 for g2, w2[tap] for g1, w1 and wp for dx)
+_PIPE_ROW_TILES = {(_BN_RELU, _BN_SUMS): 64, (_STORED, _BN_SUMS): 64,
+                   (_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
+                   (_STORED, _RELU_GRAD): 128, (_TAP_ADJOINT, _RELU_GRAD): 128,
+                   (_STORED, _INPUT_GRAD): 64}
+_WT_PAIRS = ((_STORED, _RELU_GRAD), (_TAP_ADJOINT, _RELU_GRAD), (_STORED, _INPUT_GRAD))
 _PIPE_ROWS = 32       # the pipelined weight gradient's chunks are multiples of this many rows
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -287,8 +288,7 @@ def _lib():
 
     lib = load_library("fused_block")
     for name, args in (("rxtpu_fb_gemm", _GemmArgs), ("rxtpu_fb_pipe_gemm", _GemmArgs),
-                       ("rxtpu_fb_wgrad", _WgradArgs), ("rxtpu_fb_pipe_wgrad", _WgradArgs),
-                       ("rxtpu_fb_bn_backward", _BnBwdArgs)):
+                       ("rxtpu_fb_pipe_wgrad", _WgradArgs), ("rxtpu_fb_bn_backward", _BnBwdArgs)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(args), _vp]
         fn.restype = _int
@@ -332,10 +332,17 @@ def _gemm(mode, epi, a: _ASrc, w, rows, device, *, w2=None, out=None, out_col=0,
           e_da=None, e_db=None):
     """``out[r, n] = sum_k A(r, k) W[k, n]`` with epilogue ``epi``, ``W = w``
     ``[k, n]``, or for the pairs in ``_WT_PAIRS`` ``W^T = [w | w2]`` ``[n,
-    k]``; returns the per-channel sums (two ``[n]`` vectors) for the
-    epilogues that take them."""
+    k]``, or for the adjoint 3x3 conv ``W^T = [w[0] | ... | w[8]]`` with ``w``
+    ``[9, n, k / 9]`` (w2 as stored); returns the per-channel sums (two
+    ``[n]`` vectors) for the epilogues that take them."""
     wt = (mode, epi) in _WT_PAIRS
-    k, n = (w.shape[1] + (0 if w2 is None else w2.shape[1]), w.shape[0]) if wt else w.shape
+    if mode == _TAP_ADJOINT:
+        k, n, k_split = 9 * w.shape[2], w.shape[1], 0
+    elif wt:
+        k, n = w.shape[1] + (0 if w2 is None else w2.shape[1]), w.shape[0]
+        k_split = w.shape[1]
+    else:
+        (k, n), k_split = w.shape, 0
     sums = epi in _SUM_EPIS
     pipe = (mode, epi) in _PIPE_ROW_TILES
     row_tile = _PIPE_ROW_TILES.get((mode, epi), _ROW_TILE)
@@ -353,7 +360,7 @@ def _gemm(mode, epi, a: _ASrc, w, rows, device, *, w2=None, out=None, out_col=0,
         e_scale=_p(e_scale), e_shift=_p(e_shift), e_mean=_p(e_mean), e_inv=_p(e_inv),
         e_k=_p(e_k), e_da=_p(e_da), e_db=_p(e_db),
         part0=_p(parts[0]) if sums else None, part1=_p(parts[-1]) if sums and not pipe else None,
-        w2=_p(w2), k_split=w.shape[1] if wt else 0)
+        w2=_p(w2), k_split=k_split)
     launch = _lib().rxtpu_fb_pipe_gemm if pipe else _lib().rxtpu_fb_gemm
     _ok(launch(ctypes.byref(args), _stream(w)), "gemm")
     if not sums:
@@ -367,24 +374,38 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _wgrad_chunk_rows(rows: int, k: int, n: int, device: torch.device) -> int:
-    """Rows per partial of the pipelined weight gradient: enough chunks that
-    chunks x output tiles fill two waves of two blocks per SM."""
+    """Rows per partial of the pipelined 1x1 weight gradient: enough chunks
+    that chunks x output tiles fill two waves of two blocks per SM."""
     tiles = (k // (128 if k % 128 == 0 else 64)) * (n // (128 if n % 128 == 0 else 64))
     chunks = max(1, -(-4 * _sm_count(device) // tiles))
     return -(-rows // (chunks * _PIPE_ROWS)) * _PIPE_ROWS or _PIPE_ROWS
 
 
+def _tap_chunk_rows(rows: int, k: int, n: int, device: torch.device) -> int:
+    """Rows per partial of the 9-tap weight gradient (dw2). The blocks
+    (chunks x 9 taps x output tiles) run in waves of two per SM, so the
+    rows take ``waves / chunks`` of the products' time; each chunk's f32
+    partials [9, k, n], written and read back at 3.35 TB/s, add about
+    ``120 / rows`` of it (against 18 rows k n operations at some 100
+    TFLOP/s). The chunk count, up to four waves' worth, that costs least:
+    a last wave nearly full, without a third of the bytes in partials."""
+    units = 9 * (k // (128 if k % 128 == 0 else 64)) * (n // (128 if n % 128 == 0 else 64))
+    slots = 2 * _sm_count(device)
+    chunks = min(range(1, max(1, 4 * slots // units) + 1),
+                 key=lambda c: -(-c * units // slots) / c + c * 120 / rows)
+    return -(-rows // (chunks * _PIPE_ROWS)) * _PIPE_ROWS or _PIPE_ROWS
+
+
 def _wgrad(mode, a: _ASrc, k, d, n, rows, *, d_col=0, taps=1) -> torch.Tensor:
-    """``dW[k, n] = sum_r A(r, k) d[r, d_col + n]`` (per tap with ``taps=9``:
-    ``[9, k, n]``): the pipelined kernel for one tap, the wmma template for
-    nine."""
-    chunk_rows = _WGRAD_CHUNK if taps > 1 else _wgrad_chunk_rows(rows, k, n, d.device)
+    """``dW[k, n] = sum_r A(r, k) d[r, d_col + n]``, or per 3x3 tap with
+    ``taps=9`` (``_TAP_BN_RELU``): ``[9, k, n]``."""
+    chunk_rows = (_tap_chunk_rows(rows, k, n, d.device) if taps > 1
+                  else _wgrad_chunk_rows(rows, k, n, d.device))
     chunks = -(-rows // chunk_rows)
     part = torch.empty((chunks, taps, k, n), dtype=F32, device=d.device)
     args = _WgradArgs(a=a, mode=mode, taps=taps, d=_p(d), ldd=d.shape[1], rows=rows, k=k, n=n,
                       d_col=d_col, chunk_rows=chunk_rows, part=_p(part))
-    launch = _lib().rxtpu_fb_wgrad if taps > 1 else _lib().rxtpu_fb_pipe_wgrad
-    _ok(launch(ctypes.byref(args), _stream(d)), "wgrad")
+    _ok(_lib().rxtpu_fb_pipe_wgrad(ctypes.byref(args), _stream(d)), "wgrad")
     out = _reduce(part)
     return out if taps > 1 else out[0]
 
@@ -535,8 +556,7 @@ def b3(g2, c1, c2, sc1, sh1, k2, d2a, d2b, m2, i2, w2, m1, i1, height, width):
     dc2 = torch.empty_like(c2)
     _bn_bwd(g2, c2, k2, d2a, d2b, m2, i2, dc2)
     g1 = torch.empty_like(c1)
-    w2t = w2.transpose(1, 2).reshape(9 * f, f)
-    s1a, s1b = _gemm(_TAP_ADJOINT, _RELU_GRAD, _a(dc2, kc=f, height=height, width=width), w2t,
+    s1a, s1b = _gemm(_TAP_ADJOINT, _RELU_GRAD, _a(dc2, kc=f, height=height, width=width), w2,
                      rows, c1.device, out=g1, aux0=c1, e_scale=sc1, e_shift=sh1, e_mean=m1,
                      e_inv=i1)
     a1 = _a(c1, kc=f, scale=sc1, shift=sh1, height=height, width=width)
