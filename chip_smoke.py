@@ -22,9 +22,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    tile): bf16 outputs within two ulps of max|plain| with at most 1e-3 of
    their elements more than one ulp of their own value apart (f32 sum order
    alone differs), f32 sums and weight gradients within 3e-3 of max|plain|,
-   c3's sums and the outputs of K7.1-K7.4 bit-equal over repeated
-   launches, and K7.2's dc3 bit-equal to the BN3 backward of c3 as K6.4
-   computes it;
+   every body's outputs bit-equal over repeated launches, K7.2's dc3
+   bit-equal to the BN3 backward of c3 as K6.4 computes it, and K6.3's sums
+   (the wmma template) bit-equal to those of K6.4's c3 (the pipelined
+   mainloop) taken in K6.3's order;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -60,15 +61,16 @@ Phases, each ending the run with a non-zero exit when it fails:
    unfused stem (K1, cuDNN conv with bias, ReLU, max pool); the eval and
    predict steps fused and unfused (ms, views/s, memory) and a profile of
    the fused predict step; the train step with ``--fuse-blocks on`` beside
-   the unfused one (ms, views/s, memory, device time by kernel), each K6/K7
+   the unfused one (ms, views/s, memory, device time by kernel; each
+   profile also lists the host's calls by their own time), each K6/K7
    body at the 13 blocks' shapes of a step beside its bound, its plain
    version and ``torch.matmul`` of its largest product, each launch of
-   K7.1-K7.4 timed alone, and the blocks fused against the unfused
-   composition, forward and backward.
+   K6.2, K6.4 and K7.1-K7.4 timed alone, and the blocks fused against the
+   unfused composition, forward and backward.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
-phase 2's K6/K7 checks and the timing of K7.1-K7.4's launches, per block
-shape and per train step.
+phase 2's K6/K7 checks and the timing of K6.2's, K6.4's and K7.1-K7.4's
+launches, per block shape and per train step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -349,11 +351,22 @@ def fb_gap(out, ref):
     return err, f"f32 max {err:.4g} = {rel:.3g} of max|plain| {top:.4g}", rel <= FB_F32_REL
 
 
+def fb_k4_c3(fb, c2, sc2, sh2, w3):
+    """c3 as K6.4 computes it, ``k4(scale 1) - k4(scale -1)`` with shift 0
+    and a zero residual (exact in bf16), as f32."""
+    import torch
+
+    n = w3.shape[1]
+    one, zero = torch.ones(n, device=w3.device), torch.zeros(n, device=w3.device)
+    res = torch.zeros((c2.shape[0], n), dtype=torch.bfloat16, device=c2.device)
+    return (fb.k4(c2, res, sc2, sh2, w3, one, zero).float()
+            - fb.k4(c2, res, sc2, sh2, w3, -one, zero).float())
+
+
 def fb_c3_check(fb, args):
     """K7.2's recomputed c3 bit-equal to K6.4's: dc3 from K7.2's dc3 launch
     alone against the BN3 backward (plain, f32 on the card) of c3 as K6.4
-    computes it, ``k4(scale 1) - k4(scale -1)`` with shift 0 and a zero
-    residual (exact in bf16)."""
+    computes it."""
     import torch
 
     dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2 = args
@@ -361,21 +374,89 @@ def fb_c3_check(fb, args):
     fb._gemm(fb._BN_RELU, fb._BN_BACKWARD, fb._a(c2, scale=sc2, shift=sh2), w3, c2.shape[0],
              c2.device, out=dc3, aux0=dy, aux1=y, e_mean=m3, e_inv=i3, e_k=k3, e_da=d3a,
              e_db=d3b)
-    one, zero, res = torch.ones_like(m3), torch.zeros_like(m3), torch.zeros_like(dy)
-    c3 = (fb.k4(c2, res, sc2, sh2, w3, one, zero).float()
-          - fb.k4(c2, res, sc2, sh2, w3, -one, zero).float())
-    want = fb._bn_backward(fb._g3(dy, y), fb._xhat(c3, m3, i3), k3, d3a, d3b)
+    want = fb._bn_backward(fb._g3(dy, y), fb._xhat(fb_k4_c3(fb, c2, sc2, sh2, w3), m3, i3), k3,
+                           d3a, d3b)
     return torch.equal(dc3, want)
 
 
-def fb_launch_parts(fb, name, args):
-    """The launches of backward body ``name`` on ``args``, as its wrapper
-    makes them, each as (label, fn): a GEMM or weight gradient with the
-    reductions of its sums, the BN backward, and for a ``b3`` whose adjoint
-    3x3 GEMM is not in ``_WT_PAIRS`` (it took w2 transposed, copied per
-    call) that transpose."""
+def fb_fixed_reduce(part):
+    """``[chunks, n]`` f32 partials summed in ``reduce_kernel``'s order (f32
+    adds on the card, each rounded as the kernel's ``__fadd_rn``): above
+    64 partials, groups of 64 first; in a group, lane y sums partials y, y +
+    8, ... from 0, then the eight lanes are added in order. Zero padding adds
+    +0.0 to sums that are never -0.0, so it changes no bit."""
     import torch
 
+    def lanes(p):  # [g, c, n] -> [g, n]
+        g, c, n = p.shape
+        p = torch.cat([p, p.new_zeros(g, -(-c // 8) * 8 - c, n)], 1).view(g, -1, 8, n)
+        acc = p.new_zeros(g, 8, n)
+        for j in range(p.shape[1]):
+            acc = acc + p[:, j]
+        t = p.new_zeros(g, n)
+        for lane in range(8):
+            t = t + acc[:, lane]
+        return t
+
+    chunks, n = part.shape
+    if chunks > 64:
+        groups = -(-chunks // 64)
+        part = lanes(torch.cat([part, part.new_zeros(groups * 64 - chunks, n)]).view(groups, 64, n))
+    return lanes(part[None])[0]
+
+
+def fb_k3_order_check(fb, args):
+    """K6.3's ``(s3, q3)`` (the wmma template) bit-equal to the sums of K6.4's
+    c3 (the pipelined mainloop) taken in K6.3's order: per 64-row tile a
+    serial f32 sum of v and v*v over its rows (0 past the slab), then
+    ``reduce_kernel``'s fixed order; so both mainloops give the same c3."""
+    import torch
+
+    c2, sc2, sh2, w3 = args
+    v = fb_k4_c3(fb, c2, sc2, sh2, w3)
+    rows, n = v.shape
+    tiles = -(-rows // 64)
+    v = torch.cat([v, v.new_zeros(tiles * 64 - rows, n)]).view(tiles, 64, n)
+    want = []
+    for x in (v, v * v):
+        s = x.new_zeros(tiles, n)
+        for row in range(64):
+            s = s + x[:, row]
+        want.append(fb_fixed_reduce(s))
+    got = fb.k3(c2, sc2, sh2, w3)
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+def fb_launch_parts(fb, name, args):
+    """The launches of body ``name`` (K6.2, K6.4, K7.1-K7.4) on ``args``, as
+    its wrapper makes them, each as (label, fn): a GEMM or weight gradient
+    with the reductions of its sums, or the BN backward."""
+    import torch
+
+    if name == "k2":
+        c1, sc1, sh1, w2, height, width = args
+        rows, f = c1.shape
+        c2 = torch.empty_like(c1)
+        a1 = fb._a(c1, kc=f, scale=sc1, shift=sh1, height=height, width=width)
+        return [("c2 gemm+sums", lambda: fb._gemm(fb._TAP_BN_RELU, fb._STORE_STATS, a1,
+                                                  w2.reshape(9 * f, f), rows, c1.device,
+                                                  out=c2))]
+    if name == "k4":
+        c2, x, sc2, sh2, w3, sc3, sh3, *proj = args
+        rows, n = c2.shape[0], w3.shape[1]
+        y = torch.empty((rows, n), dtype=torch.bfloat16, device=x.device)
+        res = torch.empty_like(y) if proj else x
+        parts = []
+        if proj:
+            wp, scp, shp = proj
+            parts.append(("res gemm", lambda: fb._gemm(fb._STORED, fb._RESIDUAL, fb._a(x), wp, rows,
+                                                       x.device, out=res, e_scale=scp,
+                                                       e_shift=shp)))
+        parts.append(("y gemm", lambda: fb._gemm(fb._BN_RELU, fb._OUTPUT,
+                                                 fb._a(c2, scale=sc2, shift=sh2), w3, rows,
+                                                 x.device, out=y, aux0=res, e_scale=sc3,
+                                                 e_shift=sh3)))
+        return parts
     if name == "b1":
         dy, y, c2, sc2, sh2, w3, m3, i3, *proj = args
         rows = c2.shape[0]
@@ -393,17 +474,13 @@ def fb_launch_parts(fb, name, args):
         g2, c1, c2, sc1, sh1, k2, d2a, d2b, m2, i2, w2, m1, i1, height, width = args
         rows, f = c1.shape
         dc2, g1 = torch.empty_like(c2), torch.empty_like(c1)
-        stored = (fb._TAP_ADJOINT, fb._RELU_GRAD) in fb._WT_PAIRS
-        w2t = w2 if stored else w2.transpose(1, 2).reshape(9 * f, f)
-        parts = [("dc2 bn_backward", lambda: fb._bn_bwd(g2, c2, k2, d2a, d2b, m2, i2, dc2))]
-        if not stored:
-            parts.append(("w2 transpose", lambda: w2.transpose(1, 2).reshape(9 * f, f)))
-        parts.append(("g1 gemm+sums", lambda: fb._gemm(
-            fb._TAP_ADJOINT, fb._RELU_GRAD, fb._a(dc2, kc=f, height=height, width=width), w2t,
-            rows, c1.device, out=g1, aux0=c1, e_scale=sc1, e_shift=sh1, e_mean=m1, e_inv=i1)))
         a1 = fb._a(c1, kc=f, scale=sc1, shift=sh1, height=height, width=width)
-        parts.append(("dw2 wgrad", lambda: fb._wgrad(fb._TAP_BN_RELU, a1, f, dc2, f, rows, taps=9)))
-        return parts
+        return [("dc2 bn_backward", lambda: fb._bn_bwd(g2, c2, k2, d2a, d2b, m2, i2, dc2)),
+                ("g1 gemm+sums", lambda: fb._gemm(
+                    fb._TAP_ADJOINT, fb._RELU_GRAD, fb._a(dc2, kc=f, height=height, width=width),
+                    w2, rows, c1.device, out=g1, aux0=c1, e_scale=sc1, e_shift=sh1, e_mean=m1,
+                    e_inv=i1)),
+                ("dw2 wgrad", lambda: fb._wgrad(fb._TAP_BN_RELU, a1, f, dc2, f, rows, taps=9))]
     if name == "b2":
         dy, y, c2, sc2, sh2, w3, m3, i3, k3, d3a, d3b, m2, i2 = args
         rows, f = c2.shape
@@ -469,41 +546,45 @@ def fb_phase2(dev):
                       f"{tuple(o.shape)}: {text}")
                 if not ok:
                     fail(f"fused_block {name} differs from its plain version ({label}, out {i})")
-        again = fb.k3(*ops["k3"])
-        if not all(torch.equal(a, b) for a, b in zip(fb.k3(*ops["k3"]), again)):
-            fail(f"the c3 sums of k3 differ between two launches ({label})")
-        for name in ("b1", "b2", "b3", "b4"):
+        for name in FB_NAMES:
             first, second = fb_bodies[name](*ops[name]), fb_bodies[name](*ops[name])
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
             if not all(torch.equal(a, b) for a, b in zip(first, second)):
                 fail(f"fused_block {name} differs between two launches ({label})")
         if not fb_c3_check(fb, ops["b2"]):
             fail(f"K7.2's dc3 is not the BN3 backward of K6.4's c3, bit for bit ({label})")
-        del ops, out, ref, again, first, second
-    print("c3's sums and the outputs of b1, b2, b3 and b4 bit-equal over repeated launches at "
-          "each shape (deterministic reductions); K7.2's dc3 bit-equal to the BN3 backward of "
-          "K6.4's c3")
+        if not fb_k3_order_check(fb, ops["k3"]):
+            fail(f"K6.3's sums are not those of K6.4's c3 in K6.3's order, bit for bit ({label})")
+        del ops, out, ref, first, second
+    print("every body's outputs bit-equal over repeated launches at each shape (deterministic "
+          "reductions); K7.2's dc3 bit-equal to the BN3 backward of K6.4's c3; K6.3's sums "
+          "bit-equal to those of K6.4's c3 in K6.3's order")
     return fb_err
 
 
 def fb_launch_breakdown(dev):
-    """Each launch of K7.1-K7.4 by CUDA events at the five block shapes,
-    and per train step (each shape times its blocks per step); returns
-    ``{body: {label: ms per step}}``."""
+    """Each launch of K6.2, K6.4 and K7.1-K7.4 by CUDA events at the five
+    block shapes, beside the body's bound, and per train step (each shape
+    times its blocks per step); returns ``{body: {label: ms per step}}``."""
     from rxtpu_torch.ops import fused_block as fb
 
-    per_step = {"b1": {}, "b2": {}, "b3": {}, "b4": {}}
+    per_step = {"k2": {}, "k4": {}, "b1": {}, "b2": {}, "b3": {}, "b4": {}}
     for label, plane, c, f, proj, mult in FB_SHAPES:
         ops = fb_operands(B * G, plane, c, f, proj, 8, dev)
+        r = B * G * plane * plane
         for name in per_step:
             parts = fb_launch_parts(fb, name, ops[name])
             for part, fn in parts:
-                fn()  # dc3 / dc before the launches that read them
+                fn()  # dc3 / dc / res before the launches that read them
             times = [(part, cuda_ms(fn, 10)) for part, fn in parts]
             whole = cuda_ms(lambda: getattr(fb, name)(*ops[name]), 10)
-            print(f"{name} launches {label:11s} R={B * G * plane * plane}: " + ", ".join(
+            moved, n_ops = fb_work(name, r, c, f, proj)
+            bnd = max(moved / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3
+            print(f"{name} launches {label:11s} R={r}: " + ", ".join(
                 f"{part} {ms:.4f}" for part, ms in times) + f"; sum {sum(t for _, t in times):.4f}"
-                f" ms, the body {whole:.4f} ms")
-            for part, ms in times + [("body", whole)]:
+                f" ms, the body {whole:.4f} ms (bound {bnd:.4f} ms, {100 * bnd / whole:.1f}%)")
+            for part, ms in times + [("body", whole), ("bound", bnd)]:
                 per_step[name][part] = per_step[name].get(part, 0.0) + mult * ms
         del ops
     for name, parts in per_step.items():
@@ -558,7 +639,7 @@ def main() -> int:
                 entry = "" if m is None else m.group(1) + (f"<{','.join(targs)}>" if targs else "")
             elif "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
-    if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and K7.1-K7.4's launches
+    if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and their launches
         fb_phase2(dev)
         fb_launch_breakdown(dev)
         print(card)
@@ -1367,7 +1448,8 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         # device-side events only: an aten op's own device total repeats its kernels'
-        kernels = [e for e in prof.key_averages()
+        averages = prof.key_averages()
+        kernels = [e for e in averages
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if not kernels:
             fail("the profiler recorded no device time")
@@ -1379,6 +1461,12 @@ def main() -> int:
             print(f"  {100 * e.self_device_time_total / device_us:5.1f}%  "
                   f"{e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
                   f"x{e.count // steps:<4d} {e.key[:110]}")
+        # where the host's time goes (under the profiler, which slows the host)
+        host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
+        print("  host, by self time per step: " + ", ".join(
+            f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / steps:.3f} ms x{e.count // steps}"
+            for e in host))
         return kernels, device_us
 
     kernels, device_us = device_profile(lambda: step(state, fixed, 0, True), 3,

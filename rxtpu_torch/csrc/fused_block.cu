@@ -15,42 +15,46 @@
 // r + dy*W + dx only where (y+dy, x+dx) lies inside the view's plane, and 0
 // elsewhere (SAME padding), so no tap reads across views.
 //
-// Two families of kernels. The wmma template serves K6.1-K6.4 only; a
-// pipelined mainloop serves every backward body: K7.1 (the BN3 sums), K7.2
-// (dc3, g2, dw3), K7.3 (g1 and dw2 over the 3x3 taps) and K7.4 (dcp, dx,
-// dw1, dwp).
+// Two families of kernels. The wmma template serves K6.1 (c1 and the
+// projection's sums) and K6.3 (the c3 sums) only; a pipelined mainloop
+// serves K6.2 (c2 over the 3x3 taps), K6.4 (the projection's residual and
+// y) and every backward body: K7.1 (the BN3 sums), K7.2 (dc3, g2, dw3),
+// K7.3 (g1 and dw2 over the 3x3 taps) and K7.4 (dcp, dx, dw1, dwp).
 //
 // gemm_kernel<MODE, EPI>: out[r, n] = sum_k A(r, k) W[k, n] over a 64x64 tile
 // of rows and output channels, W [K, N] bf16 row major. A(r, k) is
 //   kStored      src[r, k];
-//   kBnRelu      bf16(relu(src[r, k]*scale[k] + shift[k])) (a1 or a2);
-//   kTapBnRelu   the same at the 3x3 neighbour of tap k / kc, channel k % kc
-//                (taps in (ky, kx) row-major order, as rxtpu's _OFFSETS).
-// The epilogue (EPI) stores bf16 values, and for the BN sums writes one
-// partial sum per (64-row tile, channel), reduced afterwards in a fixed
-// order by reduce_kernel.
+//   kBnRelu      bf16(relu(src[r, k]*scale[k] + shift[k])) (a2).
+// The epilogue (EPI) stores bf16 values (kStoreStats) and writes one partial
+// sum of v and of v*v per (64-row tile, channel), reduced afterwards in a
+// fixed order by reduce_kernel.
 //
-// pipe_gemm_kernel<MODE, EPI, BN, WNK, BM> (kStored, kBnRelu or kTapAdjoint
-// A; the BN-sums, BN-backward, ReLU-gradient and input-gradient epilogues)
-// and pipe_wgrad_kernel<MODE, TK, TN> (kStored, kBnRelu or kTapBnRelu A):
-// the same functions on Hopper's copy engines. A BM x BN tile (BN 256
-// where N allows, so A and its prologue are read N / 256 times; for the
-// adjoint 3x3 conv 128 x 128, so stage 4's 512 channels still make four
-// column tiles), eight warps, a cp.async ring of A and W stages, the kBnRelu
-// prologue applied once per staged 16-byte chunk, ldmatrix + mma.sync
-// m16n8k16; the epilogue's aux tiles (dy and y, or c) come in by bulk
-// copies on an mbarrier while the products run, the epilogue works on the
-// accumulator registers with its per-channel vectors read once, and the
-// output leaves through shared memory in 16-byte rows (kBnSums stores
-// none: K7.1 is dc3's GEMM with a sums epilogue). kTapAdjoint (g1 =
-// sum_tap dc2[neighbour across -offset] w2[tap]^T) reads w2 [9, F, F] as
-// stored, W^T per tap, and each A chunk straight from dc2 at its row's
-// neighbour, zero-filled outside the plane: each thread works out its
-// rows' pixels once and the stage's tap from k. Weight gradients use the
-// same ring over rows, 64-128 x 128 output tiles and enough row chunks
-// (times 9 taps for dw2) to fill the card; dw2's tap loader follows each
-// row's pixel as the ring walks the rows, and its zero-filled chunks skip
-// the BN-ReLU prologue (a1 is zero-padded after the BN-ReLU).
+// pipe_gemm_kernel<MODE, EPI, BN, WNK, BM> (kStored, kBnRelu, kTapBnRelu or
+// kTapAdjoint A; the store-and-sums, residual, output, BN-sums,
+// BN-backward, ReLU-gradient and input-gradient epilogues) and
+// pipe_wgrad_kernel<MODE, TK, TN> (kStored, kBnRelu or kTapBnRelu A): the
+// same functions on Hopper's copy engines. A BM x BN tile (BN 256 where N
+// allows, so A and its prologue are read N / 256 times; for the 3x3 convs
+// 128 x 128, so stage 4's 512 channels still make four column tiles),
+// eight warps, a cp.async ring of A and W stages, the BN-ReLU prologue
+// applied once per staged 16-byte chunk, ldmatrix + mma.sync m16n8k16; the
+// epilogue's aux tiles (dy and y, c, or res) come in by bulk copies on an
+// mbarrier while the products run, the epilogue works on the accumulator
+// registers with its per-channel vectors read once, and the output leaves
+// through shared memory in 16-byte rows (kBnSums stores none: K7.1 is
+// dc3's GEMM with a sums epilogue, and K6.4's y GEMM is dc3's with the
+// output epilogue). The 3x3 convs read each A chunk straight from the slab
+// at its row's neighbour, zero-filled outside the plane: each thread works
+// out its rows' pixels once and the stage's tap from k (a stage lies in
+// one tap). kTapBnRelu (c2 = sum_tap a1[neighbour across offset] w2[tap])
+// reads w2 as [9 F, F] row major and applies the BN-ReLU only to chunks
+// that hold a neighbour, a bit per (ring slot, chunk) saying which: a1 is
+// zero-padded after the BN-ReLU, and relu(shift) is not 0. kTapAdjoint
+// (g1 = sum_tap dc2[neighbour across -offset] w2[tap]^T) reads w2 [9, F,
+// F] as stored, W^T per tap. Weight gradients use the same ring over rows,
+// 64-128 x 128 output tiles and enough row chunks (times 9 taps for dw2)
+// to fill the card; dw2's tap loader follows each row's pixel as the ring
+// walks the rows, and its zero-filled chunks skip the BN-ReLU prologue.
 //
 // bn_backward_kernel: dc = bf16(k*(g - da - ((c - mean)*inv)*db)), the BN
 // backward of _b3_kernel (dc2) and _b4_kernel (dc1), 8 channels (16 bytes)
@@ -76,18 +80,20 @@
 // Bound: at ResNet-50's shapes (V = 48 views) most bodies move more bytes
 // than their tensor-core time: e.g. K6.1 at a stage-1 identity block reads
 // 203.5 MB of x and writes 50.9 MB of c1, 0.076 ms at 3.35 TB/s, against
-// 13.0 GFLOP, 0.013 ms at 989 TFLOP/s. K7.1, K7.2 and K7.4 are bound by
-// bytes too (K7.1 at a stage-1 block reads dy, y and c2, 458 MB = 0.137 ms,
-// against 13.0 GFLOP = 0.013 ms; dc3 alone: c2, dy and y read, dc3 written,
+// 13.0 GFLOP, 0.013 ms at 989 TFLOP/s. K6.4, K7.1, K7.2 and K7.4 are bound
+// by bytes too (K6.4 at a stage-1 identity block reads c2 and res and
+// writes y, 458 MB = 0.137 ms, against 13.0 GFLOP = 0.013 ms; K7.1 reads
+// dy, y and c2, as many bytes; dc3 alone: c2, dy and y read, dc3 written,
 // 661 MB = 0.197 ms against 0.04 ms of products), so their kernels keep
 // copies in flight rather than reaching for wgmma's rate. The 3x3 bodies
-// are near the balance or past it: K7.3 at a stage-1 block does 58.6
-// GFLOP (0.059 ms) against 204 MB (0.061 ms), at stage 4 65.2 GFLOP (0.066
-// ms) against 43 MB; mma.sync from a cp.async ring is its rate, and dc2
-// still goes through device memory. The wmma template (K6) stages its tiles
-// through shared memory without a copy pipeline and re-reads A once per
-// 64-wide column tile; dc2, dc1, dcp and dc3 are materialized in device
-// memory. chip_smoke.py prints each body's time beside its bound.
+// are near the balance or past it: K6.2 at a stage-1 block does 29.3
+// GFLOP (0.030 ms) against 102 MB (0.030 ms), at stage 4 32.6 GFLOP (0.033
+// ms) against 19 MB; K7.3 twice the products; mma.sync from a cp.async
+// ring is their rate, and dc2 still goes through device memory. The wmma
+// template (K6.1, K6.3) stages its tiles through shared memory without a
+// copy pipeline and re-reads A once per 64-wide column tile; dc2, dc1, dcp
+// and dc3 are materialized in device memory. chip_smoke.py prints each
+// body's time beside its bound.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -216,33 +222,19 @@ __device__ __forceinline__ float bn_relu(float v, float scale, float shift) {
   return __bfloat162float(__float2bfloat16_rn(fmaxf(__fadd_rn(__fmul_rn(v, scale), shift), 0.0f)));
 }
 
-// 8 consecutive channels k..k+7 of A at row r (pixel (y, x)); zero past the
-// slab's end and, in the tap mode, where the neighbour lies outside the plane
+// 8 consecutive channels k..k+7 of A at row r; zero past the slab's end
 template <int MODE>
 __device__ __forceinline__ uint4 a_chunk(const ASrc& a, long long rows, long long r, int k) {
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  if (r >= rows) return zero;
-  long long src = r;
-  int f = k;
-  if (MODE == kTapBnRelu) {
-    const int tap = k / a.kc;
-    f = k - tap * a.kc;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const int plane = a.height * a.width;
-    const int p = static_cast<int>(r % plane);
-    const int y = p / a.width + dy, x = p % a.width + dx;
-    if (y < 0 || y >= a.height || x < 0 || x >= a.width) return zero;
-    src = r + dy * a.width + dx;
-  }
+  if (r >= rows) return make_uint4(0u, 0u, 0u, 0u);
   Pack8 v;
-  v.u = *reinterpret_cast<const uint4*>(a.ptr + src * a.ld + a.col + f);
-  if (MODE == kBnRelu || MODE == kTapBnRelu) {
+  v.u = *reinterpret_cast<const uint4*>(a.ptr + r * a.ld + a.col + k);
+  if (MODE == kBnRelu) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float2 x = __bfloat1622float2(v.h[j]);
-      v.h[j] = __floats2bfloat162_rn(bn_relu(x.x, __ldg(a.scale + f + 2 * j), __ldg(a.shift + f + 2 * j)),
-                                     bn_relu(x.y, __ldg(a.scale + f + 2 * j + 1),
-                                             __ldg(a.shift + f + 2 * j + 1)));
+      v.h[j] = __floats2bfloat162_rn(
+          bn_relu(x.x, __ldg(a.scale + k + 2 * j), __ldg(a.shift + k + 2 * j)),
+          bn_relu(x.y, __ldg(a.scale + k + 2 * j + 1), __ldg(a.shift + k + 2 * j + 1)));
     }
   }
   return v.u;
@@ -254,6 +246,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 template <int MODE, int EPI>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
+  static_assert(MODE != kTapBnRelu && MODE != kTapAdjoint, "the template reads no taps");
+  static_assert(EPI == kStoreStats || EPI == kStats, "the template's epilogues: c1, cp and c3 sums");
   // the results [64][68] f32, then a second [64][68] f32 array for the sums,
   // which lies over the staged operand tiles
   __shared__ __align__(128) unsigned char smem[2 * kBM * kLdC * 4];
@@ -316,46 +310,27 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
   }
   __syncthreads();
 
-  constexpr bool kSums = EPI == kStoreStats || EPI == kStats;
   for (int e = tid; e < kBM * kBN; e += kThreads) {
     const int row = e / kBN, col = e % kBN;
     const long long r = m0 + row;
-    const int n = n0 + col;
     float v1 = 0.0f, v2 = 0.0f;
     if (r < g.rows) {
-      const float acc_v = cs[row * kLdC + col];
-      const long long o = r * g.ldo + g.out_col + n;
-      const long long ia = r * g.ldaux + n;
-      if (EPI == kStoreStats || EPI == kStats) {
-        const bf16 b = __float2bfloat16_rn(acc_v);
-        if (EPI == kStoreStats) g.out[o] = b;
-        v1 = __bfloat162float(b);
-        v2 = __fmul_rn(v1, v1);
-      } else if (EPI == kResidual) {
-        g.out[o] = __float2bfloat16_rn(
-            __fadd_rn(__fmul_rn(round_bf16(acc_v), __ldg(g.e_scale + n)), __ldg(g.e_shift + n)));
-      } else if (EPI == kOutput) {
-        const float bn3 = round_bf16(
-            __fadd_rn(__fmul_rn(round_bf16(acc_v), __ldg(g.e_scale + n)), __ldg(g.e_shift + n)));
-        const float res = __bfloat162float(g.aux0[ia]);
-        g.out[o] = __float2bfloat16_rn(fmaxf(__fadd_rn(bn3, res), 0.0f));
-      }
+      const bf16 b = __float2bfloat16_rn(cs[row * kLdC + col]);
+      if (EPI == kStoreStats) g.out[r * g.ldo + g.out_col + n0 + col] = b;
+      v1 = __bfloat162float(b);
+      v2 = __fmul_rn(v1, v1);
     }
-    if (kSums) {
-      cs[row * kLdC + col] = v1;
-      ss[row * kLdC + col] = v2;
-    }
+    cs[row * kLdC + col] = v1;
+    ss[row * kLdC + col] = v2;
   }
-  if (kSums) {
-    __syncthreads();
-    // one thread per (array, column) sums the tile's 64 rows in order
-    const float* src = tid < kBN ? cs : ss;
-    const int col = tid % kBN;
-    float s = 0.0f;
-    for (int row = 0; row < kBM; ++row) s = __fadd_rn(s, src[row * kLdC + col]);
-    float* part = tid < kBN ? g.part0 : g.part1;
-    part[static_cast<long long>(blockIdx.y) * g.n + n0 + col] = s;
-  }
+  __syncthreads();
+  // one thread per (array, column) sums the tile's 64 rows in order
+  const float* src = tid < kBN ? cs : ss;
+  const int col = tid % kBN;
+  float s = 0.0f;
+  for (int row = 0; row < kBM; ++row) s = __fadd_rn(s, src[row * kLdC + col]);
+  float* part = tid < kBN ? g.part0 : g.part1;
+  part[static_cast<long long>(blockIdx.y) * g.n + n0 + col] = s;
 }
 
 // out[g * size + i] = sum over the partials c in [g * per, (g + 1) * per) of
@@ -520,45 +495,62 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16(relu(v*scale + shift)) in place on channels 2q, 2q + 1 of a staged
-// chunk, scale and shift (global or shared) at the chunk's first channel
-__device__ __forceinline__ void bn_relu_pair(bf16* p, const float* scale, const float* shift,
-                                             int q) {
-  const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[q]);
-  const float2 s2 = reinterpret_cast<const float2*>(scale)[q];
-  const float2 h2 = reinterpret_cast<const float2*>(shift)[q];
-  reinterpret_cast<__nv_bfloat162*>(p)[q] =
-      __floats2bfloat162_rn(bn_relu(x.x, s2.x, h2.x), bn_relu(x.y, s2.y, h2.y));
+// bf16(relu(v*scale + shift)) in place on a staged 16-byte chunk of 8
+// channels, scale and shift (global) at its first channel, one pair at a
+// time: pipe_gemm_kernel's kBnRelu prologue, where the GEMM's accumulators
+// leave few registers (unrolled, <kBnRelu, ..., 256, ...> spills)
+__device__ __forceinline__ void bn_relu_chunk(bf16* p, const float* scale, const float* shift) {
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    const float2 x = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[q]);
+    const float2 s2 = reinterpret_cast<const float2*>(scale)[q];
+    const float2 h2 = reinterpret_cast<const float2*>(shift)[q];
+    reinterpret_cast<__nv_bfloat162*>(p)[q] =
+        __floats2bfloat162_rn(bn_relu(x.x, s2.x, h2.x), bn_relu(x.y, s2.y, h2.y));
+  }
 }
 
-// the same on a whole 16-byte chunk of 8 channels: unrolled (the weight
-// gradient), or one pair at a time where the GEMM's accumulators leave few
-// registers (unrolled, pipe_gemm_kernel<kBnRelu, ..., 256, ...> spills)
-template <bool kRolled>
-__device__ __forceinline__ void bn_relu_chunk(bf16* p, const float* scale, const float* shift) {
-  if (kRolled) {
-#pragma unroll 1
-    for (int q = 0; q < 4; ++q) bn_relu_pair(p, scale, shift, q);
-  } else {  // one 16-byte load and store
-    Pack8 v;
-    v.u = *reinterpret_cast<const uint4*>(p);
+// the same on the N staged chunks p[i] whose bit i of `live` is set, which
+// share their 8 channels: scale and shift (global or shared) read once, in
+// 16-byte loads, and every load issued before the arithmetic (the weight
+// gradient's prologue and kTapBnRelu's, where a rolled loop's chain of
+// dependent loads sat on every k step)
+template <int N>
+__device__ __forceinline__ void bn_relu_chunks(bf16* const (&p)[N], unsigned live,
+                                               const float* scale, const float* shift) {
+  float sc[8], sh[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 x = __bfloat1622float2(v.h[q]);
-      const float2 s2 = reinterpret_cast<const float2*>(scale)[q];
-      const float2 h2 = reinterpret_cast<const float2*>(shift)[q];
-      v.h[q] = __floats2bfloat162_rn(bn_relu(x.x, s2.x, h2.x), bn_relu(x.y, s2.y, h2.y));
+  for (int q = 0; q < 2; ++q) {
+    const float4 s4 = reinterpret_cast<const float4*>(scale)[q];
+    const float4 h4 = reinterpret_cast<const float4*>(shift)[q];
+    sc[4 * q] = s4.x; sc[4 * q + 1] = s4.y; sc[4 * q + 2] = s4.z; sc[4 * q + 3] = s4.w;
+    sh[4 * q] = h4.x; sh[4 * q + 1] = h4.y; sh[4 * q + 2] = h4.z; sh[4 * q + 3] = h4.w;
+  }
+  Pack8 v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i].u = *reinterpret_cast<const uint4*>(p[i]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (!((live >> i) & 1u)) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(v[i].h[j]);
+      // relu, then one rounding to bf16: bn_relu's value
+      v[i].h[j] = __floats2bfloat162_rn(
+          fmaxf(__fadd_rn(__fmul_rn(x.x, sc[2 * j]), sh[2 * j]), 0.0f),
+          fmaxf(__fadd_rn(__fmul_rn(x.y, sc[2 * j + 1]), sh[2 * j + 1]), 0.0f));
     }
-    *reinterpret_cast<uint4*>(p) = v.u;
+    *reinterpret_cast<uint4*>(p[i]) = v[i].u;
   }
 }
 
 // Shared-memory plan of pipe_gemm_kernel<MODE, EPI, BN, WNK, BM>: the ring
 // of (A [BM][40], W [32][BN + 8] or W^T [BN][32], its 16-byte chunks
 // XOR-swizzled by row) stages, which the epilogue reuses to stage its bf16
-// output tile; the aux tiles (dy and y, or c) [BM][BN + 8]; the two warp
-// rows' column sums (in the ring for kBnSums, which stores no tile); the
-// aux tiles' mbarrier. The ring takes as many stages as fit, up to four.
+// output tile; the aux tiles (dy and y, c, or res; none for kStoreStats and
+// kResidual) [BM][BN + 8]; the two warp rows' column sums (in the ring for
+// kBnSums, which stores no tile); the aux tiles' mbarrier. The ring takes
+// as many stages as fit, up to four.
 // Where the accumulators leave room for two blocks per SM (BM = 64, or BN
 // <= 128), a block keeps within half an SM's shared memory, so one block's
 // epilogue overlaps the other's copies.
@@ -568,11 +560,13 @@ struct PipeGemmSmem {
   static constexpr bool kStore = EPI != kBnSums;            // an output tile leaves the block
   static constexpr int kLdW = WNK ? kPipeBK : BN + 8;
   static constexpr int kLdX = BN + 8;
-  static constexpr int kAux = (EPI == kBnBackward || EPI == kInputGrad || EPI == kBnSums) ? 2 : 1;
+  static constexpr int kAux = EPI == kBnBackward || EPI == kInputGrad || EPI == kBnSums ? 2
+                              : EPI == kReluGrad || EPI == kOutput ? 1 : 0;  // aux tiles
   static constexpr int kStage = BM * kLdPA + (WNK ? BN : kPipeBK) * kLdW;  // bf16 elements
   static constexpr int kAuxTile = BM * kLdX;                               // bf16 elements
   static constexpr int kSumBytes = 2 * 2 * BN * 4;
-  static constexpr int kSums = EPI == kReluGrad ? kSumBytes : 0;  // bytes beside the ring
+  // bytes beside the ring
+  static constexpr int kSums = EPI == kReluGrad || EPI == kStoreStats ? kSumBytes : 0;
   static constexpr int kFixed = kAux * kAuxTile * 2 + kSums + 8;  // bytes besides the ring
   // as many stages as fit, up to four
   static constexpr int kFit = ((kTwoPerSm ? kPipeSmem2 : 232448) - kFixed) / (kStage * 2);
@@ -586,31 +580,38 @@ struct PipeGemmSmem {
 };
 
 // out[r, n] = sum_k A(r, k) W[k, n] over a BM x BN tile, A stored,
-// bf16(relu(c*scale + shift)) (kBnRelu, applied once per staged chunk) or
-// the 3x3 adjoint's taps (kTapAdjoint: src at each row's neighbour across
-// the negated offset of tap k / kc, zero-filled outside the plane); W
-// [K, N] row major or, with WNK, read as stored in W^T [N, K] (w3 for g2;
-// w1 and wp side by side for the projection's dx; for kTapAdjoint the
-// tap's w2[tap] [N, kc]), K a multiple of 32. Eight warps each own a
-// BM/2 x BN/4 part of the tile: ldmatrix fragments, mma.sync m16n8k16 over
-// k in ascending 16-wide steps from a zero accumulator. A and W arrive
-// through a cp.async ring; the epilogue's aux tiles are requested first,
-// by bulk copies on an mbarrier, so their bytes are in flight during the
-// products and the ring never waits for them. The epilogue reads its
-// columns' per-channel vectors once, works on the accumulator registers,
-// stages the bf16 tile in shared memory and stores it in 16-byte rows (no
-// tile for kBnSums); its column sums go lanes (shuffles) -> warp rows ->
-// one pair per (BM-row tile, channel), in a fixed order.
+// bf16(relu(c*scale + shift)) (kBnRelu, applied once per staged chunk),
+// the 3x3 conv's taps (kTapBnRelu: bf16(relu(c*scale + shift)) at each
+// row's neighbour across the offset of tap k / kc, 0 outside the plane:
+// the zero-filled chunks skip the prologue, as the plain version pads a1
+// after the BN-ReLU) or the 3x3 adjoint's (kTapAdjoint: src at each row's
+// neighbour across the negated offset, zero-filled outside the plane); W
+// [K, N] row major (w2 as [9 kc, N] for kTapBnRelu) or, with WNK, read as
+// stored in W^T [N, K] (w3 for g2; w1 and wp side by side for the
+// projection's dx; for kTapAdjoint the tap's w2[tap] [N, kc]), K a
+// multiple of 32. Eight warps each own a BM/2 x BN/4 part of the tile:
+// ldmatrix fragments, mma.sync m16n8k16 over k in ascending 16-wide steps
+// from a zero accumulator. A and W arrive through a cp.async ring; the
+// epilogue's aux tiles are requested first, by bulk copies on an
+// mbarrier, so their bytes are in flight during the products and the ring
+// never waits for them. The epilogue reads its columns' per-channel
+// vectors once, works on the accumulator registers, stages the bf16 tile
+// in shared memory and stores it in 16-byte rows (no tile for kBnSums);
+// its column sums go lanes (shuffles) -> warp rows -> one pair per (BM-row
+// tile, channel), in a fixed order.
 template <int MODE, int EPI, int BN, bool WNK, int BM>
 __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::kTwoPerSm ? 2 : 1)
     pipe_gemm_kernel(const GemmArgs g) {
   using S = PipeGemmSmem<EPI, BN, WNK, BM>;
   static_assert(MODE != kTapAdjoint || WNK, "the adjoint reads w2[tap] as stored");
+  static_assert(MODE != kTapBnRelu || !WNK, "the forward tap reads w2 [9 kc, N] row major");
+  constexpr bool kTap = MODE == kTapBnRelu || MODE == kTapAdjoint;
   constexpr int MT = BM / 32;  // m16 tiles per warp (BM / 2 rows)
   constexpr int NT = BN / 32;  // n8 tiles per warp (BN / 4 columns)
   constexpr int kCpr = BN / 8; // 16-byte chunks per tile row
   constexpr int kArows = BM * 4 / kPipeThreads;  // A rows this thread copies in every stage
-  constexpr bool kSumEpi = EPI == kReluGrad || EPI == kBnSums;
+  constexpr bool kSumEpi = EPI == kReluGrad || EPI == kBnSums || EPI == kStoreStats;
+  static_assert(kArows * S::kStages <= 32, "one validity bit per (slot, chunk)");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* aux = reinterpret_cast<bf16*>(smem + S::kRing);
@@ -625,11 +626,13 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
   const int n_aux = EPI == kInputGrad && !g.add_g3 ? 0 : S::kAux;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + S::kBar);
 
-  // kTapAdjoint: the pixels (y, x) of this thread's A rows in their plane,
-  // worked out once in 32 bits (y = -2 past the slab, so that no neighbour
-  // lies inside)
+  // the tap modes: the pixels (y, x) of this thread's A rows in their
+  // plane, worked out once in 32 bits (y = -2 past the slab, so that no
+  // neighbour lies inside); kTapBnRelu: which of its chunks hold a
+  // neighbour, one bit per (ring slot, chunk)
   int py[kArows], px[kArows];
-  if (MODE == kTapAdjoint) {
+  unsigned inside = 0;
+  if (kTap) {
     const int plane = g.a.height * g.a.width;
 #pragma unroll
     for (int i = 0; i < kArows; ++i) {
@@ -644,17 +647,22 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
     const int k0 = kt * kPipeBK;
     bf16* as = ring + slot * S::kStage;
     bf16* ws = as + BM * kLdPA;
-    // kTapAdjoint: a stage's 32 k lie in one tap (kc a multiple of 64)
-    const int tap = MODE == kTapAdjoint ? k0 / g.a.kc : 0;
+    // the tap modes: a stage's 32 k lie in one tap (kc a multiple of 64)
+    const int tap = kTap ? k0 / g.a.kc : 0;
     const int j0 = k0 - tap * g.a.kc;
-    if (MODE == kTapAdjoint) {  // A: each row's neighbour across the negated offset, or zeros
-      const int dy = 1 - tap / 3, dx = 1 - tap % 3;
+    if (kTap) {  // A: each row's neighbour across the tap's offset (the adjoint's negated), or 0
+      const int dy = MODE == kTapAdjoint ? 1 - tap / 3 : tap / 3 - 1;
+      const int dx = MODE == kTapAdjoint ? 1 - tap % 3 : tap % 3 - 1;
       const long long off = static_cast<long long>(dy * g.a.width + dx) * g.a.ld + g.a.col + j0;
 #pragma unroll
       for (int i = 0; i < kArows; ++i) {
         const int row = (tid >> 2) + 64 * i, q = (tid & 3) * 8;
         const bool ok = static_cast<unsigned>(py[i] + dy) < static_cast<unsigned>(g.a.height) &&
                         static_cast<unsigned>(px[i] + dx) < static_cast<unsigned>(g.a.width);
+        if (MODE == kTapBnRelu) {
+          const unsigned bit = 1u << (slot * kArows + i);
+          inside = ok ? inside | bit : inside & ~bit;
+        }
         cp_async16(as + row * kLdPA + q, g.a.ptr + (ok ? (m0 + row) * g.a.ld + off + q : 0), ok);
       }
     } else {
@@ -728,9 +736,19 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
       for (int i = 0; i < kArows; ++i) {
         // rows past the slab are transformed too: their outputs are never stored
         const int k = kt * kPipeBK + (tid & 3) * 8;
-        bn_relu_chunk<true>(as + ((tid >> 2) + 64 * i) * kLdPA + (tid & 3) * 8, g.a.scale + k,
-                            g.a.shift + k);
+        bn_relu_chunk(as + ((tid >> 2) + 64 * i) * kLdPA + (tid & 3) * 8, g.a.scale + k,
+                      g.a.shift + k);
       }
+    }
+    if (MODE == kTapBnRelu) {  // the same at channel k within its tap, on the chunks that hold
+                               // a neighbour: zero-filled ones stay zero
+      const int k = kt * kPipeBK % g.a.kc + (tid & 3) * 8;
+      bf16* chunks[kArows];
+#pragma unroll
+      for (int i = 0; i < kArows; ++i) {
+        chunks[i] = as + ((tid >> 2) + 64 * i) * kLdPA + (tid & 3) * 8;
+      }
+      bn_relu_chunks(chunks, inside >> (slot * kArows), g.a.scale + k, g.a.shift + k);
     }
     __syncthreads();
     const int next = kt + S::kStages - 1;
@@ -787,7 +805,7 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
       v_da = __ldg(reinterpret_cast<const float2*>(g.e_da + n));
       v_db = __ldg(reinterpret_cast<const float2*>(g.e_db + n));
     }
-    if (EPI == kReluGrad) {
+    if (EPI == kReluGrad || EPI == kOutput || EPI == kResidual) {
       v_scale = __ldg(reinterpret_cast<const float2*>(g.e_scale + n));
       v_shift = __ldg(reinterpret_cast<const float2*>(g.e_shift + n));
     }
@@ -833,6 +851,31 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
               s1[e] = __fadd_rn(s1[e], g3[e]);
               s2[e] = __fadd_rn(s2[e], __fmul_rn(g3[e], xhat));
             }
+          }
+        } else if (EPI == kOutput || EPI == kResidual) {
+          // res = bf16(bf16(acc)*scale + shift); y = bf16(max(bn3 + res, 0)), bn3 likewise
+          float bn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bn[e] = __fadd_rn(__fmul_rn(round_bf16(acc2[e]), e ? v_scale.y : v_scale.x),
+                              e ? v_shift.y : v_shift.x);
+          }
+          if (EPI == kOutput) {
+            const float2 res =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
+            bn[0] = fmaxf(__fadd_rn(round_bf16(bn[0]), res.x), 0.0f);
+            bn[1] = fmaxf(__fadd_rn(round_bf16(bn[1]), res.y), 0.0f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage + o) = __floats2bfloat162_rn(bn[0], bn[1]);
+        } else if (EPI == kStoreStats) {  // v = bf16(acc); sums of v and v*v
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(acc2[0], acc2[1]);
+          *reinterpret_cast<__nv_bfloat162*>(stage + o) = pair;
+          if (m0 + row < g.rows) {
+            const float2 v = __bfloat1622float2(pair);
+            s1[0] = __fadd_rn(s1[0], v.x);
+            s1[1] = __fadd_rn(s1[1], v.y);
+            s2[0] = __fadd_rn(s2[0], __fmul_rn(v.x, v.x));
+            s2[1] = __fadd_rn(s2[1], __fmul_rn(v.y, v.y));
           }
         } else {  // kReluGrad
           const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(aux0 + o));
@@ -926,6 +969,7 @@ __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const Wgrad
   constexpr int kCprA = TK / 8, kCprD = TN / 8;
   constexpr int kArows = kWgBR * kCprA / kPipeThreads;  // A chunks this thread copies per stage
   static_assert(kWgStages * kArows <= 32, "one validity bit per (slot, chunk)");
+  static_assert(kPipeThreads % kCprA == 0, "a thread's A chunks share their channels");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   float* vec = reinterpret_cast<float*>(smem + kWgStages * kStage * 2);  // scale [TK], shift [TK]
@@ -1020,14 +1064,18 @@ __global__ void __launch_bounds__(kPipeThreads, 2) pipe_wgrad_kernel(const Wgrad
     const bf16* ds = as + kWgBR * kLdA;
     if (kPrologue) {  // this thread's own chunks, landed: the prologue, once
       const long long r0 = r_begin + static_cast<long long>(step) * kWgBR;
+      const int q = (tid % kCprA) * 8;  // the channels of all of them
+      bf16* chunks[kArows];
+      unsigned live = 0;
 #pragma unroll
       for (int i = 0; i < kArows; ++i) {
-        const int c = tid + kPipeThreads * i;
-        const int rr = c / kCprA, q = (c % kCprA) * 8;
+        const int rr = (tid + kPipeThreads * i) / kCprA;
+        chunks[i] = as + rr * kLdA + q;
         // zero-filled chunks (past the chunk's rows, or no neighbour) stay zero
         const bool ok = kTap ? (inside >> (slot * kArows + i)) & 1u : r0 + rr < r_end;
-        if (ok) bn_relu_chunk<false>(as + rr * kLdA + q, vec + q, vec + TK + q);
+        live |= static_cast<unsigned>(ok) << i;
       }
+      bn_relu_chunks(chunks, live, vec + q, vec + TK + q);
     }
     __syncthreads();
     const int next = step + kWgStages - 1;
@@ -1091,8 +1139,8 @@ int done() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
-// One GEMM of the wmma template with its prologue and epilogue (K6.1-K6.4);
-// grid (n / 64, ceil(rows / 64)).
+// One GEMM of the wmma template with its prologue and epilogue (K6.1 and
+// K6.3); grid (n / 64, ceil(rows / 64)).
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
 // cudaErrorInvalidValue for a (mode, epi) pair that no body uses.
 extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
@@ -1107,10 +1155,7 @@ extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
   }
   RXTPU_FB_CASE(kStored, kStoreStats)      // K6.1 c1
   RXTPU_FB_CASE(kStored, kStats)           // K6.1 projection sums
-  RXTPU_FB_CASE(kTapBnRelu, kStoreStats)   // K6.2 c2
   RXTPU_FB_CASE(kBnRelu, kStats)           // K6.3 c3 sums
-  RXTPU_FB_CASE(kStored, kResidual)        // K6.4 projection residual
-  RXTPU_FB_CASE(kBnRelu, kOutput)          // K6.4 y
 #undef RXTPU_FB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1200,16 +1245,29 @@ int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
 
 }  // namespace
 
-// One GEMM on the pipelined mainloop (K7.1's BN3 sums, K7.2's dc3 and g2,
-// K7.3's g1, K7.4's dcp and dx); grid (n / BN, ceil(rows / BM)), BM 128
-// for g2 and g1 and 64 for the others; the epilogues with sums write one
-// pair per (BM-row tile, channel) to part0 [tiles, 2, n]. k a multiple of 32, n of 64; g2, g1 and dx read W^T [n, k]
-// as stored, g1 per tap from w2 [9, n, kc] (k = 9 kc, kc a multiple of 64).
+// One GEMM on the pipelined mainloop (K6.2's c2, K6.4's residual and y,
+// K7.1's BN3 sums, K7.2's dc3 and g2, K7.3's g1, K7.4's dcp and dx); grid
+// (n / BN, ceil(rows / BM)), BM 128 for c2, g2 and g1 and 64 for the
+// others; the epilogues with sums write one pair per (BM-row tile,
+// channel) to part0 [tiles, 2, n]. k a multiple of 32, n of 64; c2 reads
+// w2 as [k, n] (k = 9 kc, kc a multiple of 64); g2, g1 and dx read W^T
+// [n, k] as stored, g1 per tap from w2 [9, n, kc].
 extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
   const GemmArgs& a = *args;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.rows == 0) return static_cast<int>(cudaSuccess);
   if (a.k % kPipeBK != 0 || a.n % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool taps_ok = a.a.kc % 64 == 0 && a.k == 9 * a.a.kc && a.k_split == 0;
+  if (a.mode == kTapBnRelu && a.epi == kStoreStats) {  // K6.2 c2, W = w2 [9 kc, n]
+    if (!taps_ok) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_pipe_gemm<kTapBnRelu, kStoreStats, false, 128, 128>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kResidual) {  // K6.4 projection residual, W = wp
+    return launch_pipe_gemm<kStored, kResidual, false, 64>(a, st);
+  }
+  if (a.mode == kBnRelu && a.epi == kOutput) {  // K6.4 y, W = w3
+    return launch_pipe_gemm<kBnRelu, kOutput, false, 64>(a, st);
+  }
   if (a.mode == kBnRelu && a.epi == kBnSums) {  // K7.1 BN3 sums: dc3's GEMM, W = w3
     return launch_pipe_gemm<kBnRelu, kBnSums, false, 64>(a, st);
   }
@@ -1217,9 +1275,7 @@ extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
     return launch_pipe_gemm<kStored, kBnSums, false, 64>(a, st);
   }
   if (a.mode == kTapAdjoint && a.epi == kReluGrad) {  // K7.3 g1, W^T = w2[tap]
-    if (a.a.kc % 64 != 0 || a.k != 9 * a.a.kc || a.k_split != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (!taps_ok) return static_cast<int>(cudaErrorInvalidValue);
     return launch_pipe_gemm<kTapAdjoint, kReluGrad, true, 128, 128>(a, st);
   }
   if (a.mode == kBnRelu && a.epi == kBnBackward) {  // K7.2 dc3, W = w3

@@ -238,16 +238,18 @@ def b4_reference(g1, c1, x, dy, y, k1, d1a, d1b, m1, i1, w1, wp=None, kp=None, d
 # The CUDA kernels (csrc/fused_block.cu): arguments and launches
 # ---------------------------------------------------------------------------
 
-# the A operand's modes and the epilogues of the GEMM template
+# the A operand's modes and the epilogues of the GEMM kernels
 _STORED, _BN_RELU, _TAP_BN_RELU, _TAP_ADJOINT = range(4)
 (_STORE_STATS, _STATS, _RESIDUAL, _OUTPUT, _BN_SUMS, _BN_BACKWARD, _RELU_GRAD,
  _INPUT_GRAD) = range(8)
 _SUM_EPIS = (_STORE_STATS, _STATS, _BN_SUMS, _RELU_GRAD)
-_ROW_TILE = 64  # rows per block of the template GEMM: one partial sum per tile and channel
-# the (mode, epilogue) pairs of K7.1-K7.4, on the pipelined mainloop, and its
-# rows per block; g2, g1 and dx read their weights transposed, as stored
-# ([n, k]: w3 for g2, w2[tap] for g1, w1 and wp for dx)
-_PIPE_ROW_TILES = {(_BN_RELU, _BN_SUMS): 64, (_STORED, _BN_SUMS): 64,
+_ROW_TILE = 64  # rows per block of the template GEMM (K6.1, K6.3): one partial sum per tile
+# the (mode, epilogue) pairs of K6.2, K6.4 and K7.1-K7.4, on the pipelined
+# mainloop, and its rows per block; g2, g1 and dx read their weights
+# transposed, as stored ([n, k]: w3 for g2, w2[tap] for g1, w1 and wp for dx)
+_PIPE_ROW_TILES = {(_TAP_BN_RELU, _STORE_STATS): 128, (_STORED, _RESIDUAL): 64,
+                   (_BN_RELU, _OUTPUT): 64,
+                   (_BN_RELU, _BN_SUMS): 64, (_STORED, _BN_SUMS): 64,
                    (_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
                    (_STORED, _RELU_GRAD): 128, (_TAP_ADJOINT, _RELU_GRAD): 128,
                    (_STORED, _INPUT_GRAD): 64}
