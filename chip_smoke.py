@@ -23,9 +23,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    their elements more than one ulp of their own value apart (f32 sum order
    alone differs), f32 sums and weight gradients within 3e-3 of max|plain|,
    every body's outputs bit-equal over repeated launches, K7.2's dc3
-   bit-equal to the BN3 backward of c3 as K6.4 computes it, and K6.3's sums
-   (the wmma template) bit-equal to those of K6.4's c3 (the pipelined
-   mainloop) taken in K6.3's order;
+   bit-equal to the BN3 backward of c3 as K6.4 computes it, K6.3's sums
+   bit-equal to those of K6.4's c3 and K6.1's projection sums to those of
+   cp as K6.4's residual launch computes it, both taken in the order of the
+   pipelined mainloop's sums epilogue;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -65,12 +66,13 @@ Phases, each ending the run with a non-zero exit when it fails:
    profile also lists the host's calls by their own time), each K6/K7
    body at the 13 blocks' shapes of a step beside its bound, its plain
    version and ``torch.matmul`` of its largest product, each launch of
-   K6.2, K6.4 and K7.1-K7.4 timed alone, and the blocks fused against the
-   unfused composition, forward and backward.
+   every body timed alone, each body's device time (the host enqueueing
+   ahead of the card) and its host's time to enqueue it, and the blocks fused against the unfused
+   composition, forward and backward.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
-phase 2's K6/K7 checks and the timing of K6.2's, K6.4's and K7.1-K7.4's
-launches, per block shape and per train step.
+phase 2's K6/K7 checks and the timing of every body's launches, device
+time and host time, per block shape and per train step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -123,6 +125,48 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, spin_cycles=50_000_000):
+    """Mean device time of ``fn()`` in ms over ``iters`` calls run back to
+    back: the card first spins (``torch.cuda._sleep``) while the host
+    enqueues every call, so CUDA events around the calls time the card
+    alone, where a loop the host cannot keep ahead of times the host. If
+    the card reached the calls before the host had enqueued them all, the
+    spin is lengthened and the reading taken again."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card still spinning: every call was enqueued first
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin_cycles *= 4
+    fail("the host did not get ahead of the card, so fn's device time was not measured")
+
+
+def host_ms(fn, iters):
+    """Mean host time in ms to enqueue ``fn()``, over ``iters`` calls
+    started on a drained card: above its device time, a loop of ``fn()``
+    runs at the host's pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
 
 
 def bitwise_diff(a, b):
@@ -405,34 +449,84 @@ def fb_fixed_reduce(part):
     return lanes(part[None])[0]
 
 
-def fb_k3_order_check(fb, args):
-    """K6.3's ``(s3, q3)`` (the wmma template) bit-equal to the sums of K6.4's
-    c3 (the pipelined mainloop) taken in K6.3's order: per 64-row tile a
-    serial f32 sum of v and v*v over its rows (0 past the slab), then
-    ``reduce_kernel``'s fixed order; so both mainloops give the same c3."""
+def fb_pipe_sums(v, bm=64):
+    """Per-channel sums of a ``[rows, n]`` f32 slab in the order of
+    ``pipe_gemm_kernel``'s sums epilogues, each add an f32 add as the
+    kernel's ``__fadd_rn``: per BM-row tile and warp row (BM / 2 rows), the
+    lane g (of the 8 that share a column) sums rows ``mt*16 + g`` and ``mt*16
+    + g + 8`` for mt = 0, 1, ... in that order from 0; the ``xor 4, 8, 16``
+    butterfly adds the lanes as ((0+1) + (2+3)) + ((4+5) + (6+7)); warp row
+    0 plus warp row 1 gives the tile's partial; then ``fb_fixed_reduce``
+    over the tiles. Rows past the slab, which the kernel skips, add +0.0
+    here: that changes no bit of a sum that is never -0.0."""
     import torch
 
-    c2, sc2, sh2, w3 = args
-    v = fb_k4_c3(fb, c2, sc2, sh2, w3)
     rows, n = v.shape
-    tiles = -(-rows // 64)
-    v = torch.cat([v, v.new_zeros(tiles * 64 - rows, n)]).view(tiles, 64, n)
-    want = []
-    for x in (v, v * v):
-        s = x.new_zeros(tiles, n)
-        for row in range(64):
-            s = s + x[:, row]
-        want.append(fb_fixed_reduce(s))
-    got = fb.k3(c2, sc2, sh2, w3)
+    tiles = -(-rows // bm)
+    # [tile, warp row, mt, h, g, n]: row wm*(bm/2) + mt*16 + 8*h + g of its tile
+    v = torch.cat([v, v.new_zeros(tiles * bm - rows, n)]).view(tiles, 2, bm // 32, 2, 8, n)
+    lane = v.new_zeros(tiles, 2, 8, n)
+    for mt in range(bm // 32):
+        for h in range(2):
+            lane = lane + v[:, :, mt, h]
+    for _ in range(3):  # xor 4, 8, 16: lanes g and g ^ 1, then pairs of pairs
+        lane = lane[:, :, 0::2] + lane[:, :, 1::2]
+    return fb_fixed_reduce(lane[:, 0, 0] + lane[:, 1, 0])
+
+
+def fb_sums_tie(got, v, bm):
+    """The sums ``got`` of v and v*v bit-equal to ``fb_pipe_sums``'."""
+    import torch
+
+    want = (fb_pipe_sums(v, bm), fb_pipe_sums(v * v, bm))
     return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
 
 
-def fb_launch_parts(fb, name, args):
-    """The launches of body ``name`` (K6.2, K6.4, K7.1-K7.4) on ``args``, as
-    its wrapper makes them, each as (label, fn): a GEMM or weight gradient
-    with the reductions of its sums, or the BN backward."""
+def fb_k3_tie(fb, args):
+    """K6.3's ``(s3, q3)`` bit-equal to the sums of K6.4's c3 in the pipe
+    epilogue's order: one c3 from the two launches."""
+    c2, sc2, sh2, w3 = args
+    return fb_sums_tie(fb.k3(*args), fb_k4_c3(fb, c2, sc2, sh2, w3),
+                       fb._ROW_TILES[(fb._BN_RELU, fb._STATS)])
+
+
+def fb_cp_tie(fb, args):
+    """K6.1's projection sums ``(sp, qp)`` bit-equal to the sums, in the pipe
+    epilogue's order, of cp as K6.4's residual launch computes it with scale
+    1 and shift 0 (its output then bf16(acc) exactly): one cp in K6.1, K6.4,
+    K7.1 and K7.4."""
     import torch
 
+    x, _, wp = args
+    rows, n = x.shape[0], wp.shape[1]
+    cp = torch.empty((rows, n), dtype=torch.bfloat16, device=x.device)
+    one, zero = torch.ones(n, device=x.device), torch.zeros(n, device=x.device)
+    fb._gemm(fb._STORED, fb._RESIDUAL, fb._a(x), wp, rows, x.device, out=cp, e_scale=one,
+             e_shift=zero)
+    return fb_sums_tie(fb.k1(*args)[3:], cp.float(), fb._ROW_TILES[(fb._STORED, fb._STATS)])
+
+
+def fb_launch_parts(fb, name, args):
+    """The launches of body ``name`` on ``args``, as its wrapper makes them,
+    each as (label, fn): a GEMM or weight gradient with the reductions of
+    its sums, or the BN backward."""
+    import torch
+
+    if name == "k1":
+        x, w1, wp = args
+        rows = x.shape[0]
+        c1 = torch.empty((rows, w1.shape[1]), dtype=torch.bfloat16, device=x.device)
+        parts = [("c1 gemm+sums", lambda: fb._gemm(fb._STORED, fb._STORE_STATS, fb._a(x), w1, rows,
+                                                   x.device, out=c1))]
+        if wp is not None:
+            parts.append(("cp sums", lambda: fb._gemm(fb._STORED, fb._STATS, fb._a(x), wp, rows,
+                                                      x.device)))
+        return parts
+    if name == "k3":
+        c2, sc2, sh2, w3 = args
+        a2 = fb._a(c2, scale=sc2, shift=sh2)
+        return [("c3 sums", lambda: fb._gemm(fb._BN_RELU, fb._STATS, a2, w3, c2.shape[0],
+                                             c2.device))]
     if name == "k2":
         c1, sc1, sh1, w2, height, width = args
         rows, f = c1.shape
@@ -554,22 +648,29 @@ def fb_phase2(dev):
                 fail(f"fused_block {name} differs between two launches ({label})")
         if not fb_c3_check(fb, ops["b2"]):
             fail(f"K7.2's dc3 is not the BN3 backward of K6.4's c3, bit for bit ({label})")
-        if not fb_k3_order_check(fb, ops["k3"]):
-            fail(f"K6.3's sums are not those of K6.4's c3 in K6.3's order, bit for bit ({label})")
+        if not fb_k3_tie(fb, ops["k3"]):
+            fail(f"K6.3's sums are not those of K6.4's c3 in the pipe epilogue's order, bit for "
+                 f"bit ({label})")
+        if proj and not fb_cp_tie(fb, ops["k1"]):
+            fail(f"K6.1's projection sums are not those of K6.4's cp in the pipe epilogue's "
+                 f"order, bit for bit ({label})")
         del ops, out, ref, first, second
     print("every body's outputs bit-equal over repeated launches at each shape (deterministic "
           "reductions); K7.2's dc3 bit-equal to the BN3 backward of K6.4's c3; K6.3's sums "
-          "bit-equal to those of K6.4's c3 in K6.3's order")
+          "bit-equal to those of K6.4's c3, and K6.1's projection sums to those of K6.4's cp, "
+          "in the pipe epilogue's order")
     return fb_err
 
 
 def fb_launch_breakdown(dev):
-    """Each launch of K6.2, K6.4 and K7.1-K7.4 by CUDA events at the five
-    block shapes, beside the body's bound, and per train step (each shape
-    times its blocks per step); returns ``{body: {label: ms per step}}``."""
+    """Each launch of every K6/K7 body by CUDA events at the five block
+    shapes, the body by events, by its device time with the host ahead and
+    by the host's time to enqueue it (events read about the larger of the
+    two), beside the body's bound, and per train step (each shape times its
+    blocks per step); returns ``{body: {label: ms per step}}``."""
     from rxtpu_torch.ops import fused_block as fb
 
-    per_step = {"k2": {}, "k4": {}, "b1": {}, "b2": {}, "b3": {}, "b4": {}}
+    per_step = {name: {} for name in FB_NAMES}
     for label, plane, c, f, proj, mult in FB_SHAPES:
         ops = fb_operands(B * G, plane, c, f, proj, 8, dev)
         r = B * G * plane * plane
@@ -579,12 +680,16 @@ def fb_launch_breakdown(dev):
                 fn()  # dc3 / dc / res before the launches that read them
             times = [(part, cuda_ms(fn, 10)) for part, fn in parts]
             whole = cuda_ms(lambda: getattr(fb, name)(*ops[name]), 10)
+            dev_ms = device_ms(lambda: getattr(fb, name)(*ops[name]), 10)
+            enq_ms = host_ms(lambda: getattr(fb, name)(*ops[name]), 10)
             moved, n_ops = fb_work(name, r, c, f, proj)
             bnd = max(moved / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3
             print(f"{name} launches {label:11s} R={r}: " + ", ".join(
                 f"{part} {ms:.4f}" for part, ms in times) + f"; sum {sum(t for _, t in times):.4f}"
-                f" ms, the body {whole:.4f} ms (bound {bnd:.4f} ms, {100 * bnd / whole:.1f}%)")
-            for part, ms in times + [("body", whole), ("bound", bnd)]:
+                f" ms, the body {whole:.4f} ms (bound {bnd:.4f} ms, {100 * bnd / whole:.1f}%), "
+                f"its device time {dev_ms:.4f} ms, the host's {enq_ms:.4f} ms")
+            for part, ms in times + [("body", whole), ("device", dev_ms), ("host", enq_ms),
+                                     ("bound", bnd)]:
                 per_step[name][part] = per_step[name].get(part, 0.0) + mult * ms
         del ops
     for name, parts in per_step.items():

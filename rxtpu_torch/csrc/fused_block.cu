@@ -15,41 +15,39 @@
 // r + dy*W + dx only where (y+dy, x+dx) lies inside the view's plane, and 0
 // elsewhere (SAME padding), so no tap reads across views.
 //
-// Two families of kernels. The wmma template serves K6.1 (c1 and the
-// projection's sums) and K6.3 (the c3 sums) only; a pipelined mainloop
-// serves K6.2 (c2 over the 3x3 taps), K6.4 (the projection's residual and
-// y) and every backward body: K7.1 (the BN3 sums), K7.2 (dc3, g2, dw3),
-// K7.3 (g1 and dw2 over the 3x3 taps) and K7.4 (dcp, dx, dw1, dwp).
+// One family of kernels, on Hopper's copy engines:
+// pipe_gemm_kernel<MODE, EPI, BN, WNK, BM> runs every GEMM of the eight
+// bodies, K6.1 (c1 and the projection's sums), K6.2 (c2 over the 3x3
+// taps), K6.3 (the c3 sums), K6.4 (the projection's residual and y), K7.1
+// (the BN3 sums), K7.2 (dc3, g2), K7.3 (g1 over the 3x3 taps) and K7.4
+// (dcp, dx); pipe_wgrad_kernel<MODE, TK, TN> their weight gradients (dw3,
+// dw2, dw1, dwp).
 //
-// gemm_kernel<MODE, EPI>: out[r, n] = sum_k A(r, k) W[k, n] over a 64x64 tile
-// of rows and output channels, W [K, N] bf16 row major. A(r, k) is
-//   kStored      src[r, k];
-//   kBnRelu      bf16(relu(src[r, k]*scale[k] + shift[k])) (a2).
-// The epilogue (EPI) stores bf16 values (kStoreStats) and writes one partial
-// sum of v and of v*v per (64-row tile, channel), reduced afterwards in a
-// fixed order by reduce_kernel.
-//
-// pipe_gemm_kernel<MODE, EPI, BN, WNK, BM> (kStored, kBnRelu, kTapBnRelu or
-// kTapAdjoint A; the store-and-sums, residual, output, BN-sums,
-// BN-backward, ReLU-gradient and input-gradient epilogues) and
-// pipe_wgrad_kernel<MODE, TK, TN> (kStored, kBnRelu or kTapBnRelu A): the
-// same functions on Hopper's copy engines. A BM x BN tile (BN 256 where N
-// allows, so A and its prologue are read N / 256 times; for the 3x3 convs
-// 128 x 128, so stage 4's 512 channels still make four column tiles),
-// eight warps, a cp.async ring of A and W stages, the BN-ReLU prologue
-// applied once per staged 16-byte chunk, ldmatrix + mma.sync m16n8k16; the
-// epilogue's aux tiles (dy and y, c, or res) come in by bulk copies on an
-// mbarrier while the products run, the epilogue works on the accumulator
-// registers with its per-channel vectors read once, and the output leaves
-// through shared memory in 16-byte rows (kBnSums stores none: K7.1 is
-// dc3's GEMM with a sums epilogue, and K6.4's y GEMM is dc3's with the
-// output epilogue). The 3x3 convs read each A chunk straight from the slab
-// at its row's neighbour, zero-filled outside the plane: each thread works
-// out its rows' pixels once and the stage's tap from k (a stage lies in
-// one tap). kTapBnRelu (c2 = sum_tap a1[neighbour across offset] w2[tap])
-// reads w2 as [9 F, F] row major and applies the BN-ReLU only to chunks
-// that hold a neighbour, a bit per (ring slot, chunk) saying which: a1 is
-// zero-padded after the BN-ReLU, and relu(shift) is not 0. kTapAdjoint
+// pipe_gemm_kernel (kStored, kBnRelu, kTapBnRelu or kTapAdjoint A; the
+// store-and-sums, sums, residual, output, BN-sums, BN-backward, ReLU-gradient
+// and input-gradient epilogues) and pipe_wgrad_kernel (kStored, kBnRelu or
+// kTapBnRelu A): out[r, n] = sum_k A(r, k) W[k, n], A(r, k) src[r, k]
+// (kStored) or bf16(relu(src[r, k]*scale[k] + shift[k])) (kBnRelu: a2),
+// over a BM x BN tile (BN 256 where N allows, so A and its prologue are
+// read N / 256 times; for the 3x3 convs 128 x 128, so stage 4's 512
+// channels still make four column tiles), eight warps, a cp.async ring of
+// A and W stages, the BN-ReLU prologue applied once per staged 16-byte
+// chunk, ldmatrix + mma.sync m16n8k16; the epilogue's aux tiles (dy and y,
+// c, or res) come in by bulk copies on an mbarrier while the products run,
+// the epilogue works on the accumulator registers with its per-channel
+// vectors read once, and the output leaves through shared memory in
+// 16-byte rows (kStats and kBnSums store none: K6.3 and K7.1 are dc3's
+// GEMM with a sums epilogue, K6.1's projection sums the residual's, and
+// K6.4's y GEMM is dc3's with the output epilogue). Epilogues with sums
+// write one pair of partials per (BM-row tile, channel), reduced
+// afterwards in a fixed order by reduce_kernel. The 3x3 convs read each A
+// chunk straight from the slab at its row's neighbour, zero-filled outside
+// the plane: each thread works out its rows' pixels once and the stage's
+// tap from k (a stage lies in one tap). kTapBnRelu (c2 = sum_tap
+// a1[neighbour across offset] w2[tap]) reads w2 as [9 F, F] row major and
+// applies the BN-ReLU only to chunks that hold a neighbour, a bit per
+// (ring slot, chunk) saying which: a1 is zero-padded after the BN-ReLU,
+// and relu(shift) is not 0. kTapAdjoint
 // (g1 = sum_tap dc2[neighbour across -offset] w2[tap]^T) reads w2 [9, F,
 // F] as stored, W^T per tap. Weight gradients use the same ring over rows,
 // 64-128 x 128 output tiles and enough row chunks (times 9 taps for dw2)
@@ -62,10 +60,10 @@
 //
 // Every reduction is deterministic: no float atomics; per-tile partials are
 // summed in a fixed order. c3, computed in K6.3, K6.4, K7.1 and K7.2, comes
-// out bit for bit the same each time, as rxtpu's recomputation assumes:
-// each output is summed from a zero f32 accumulator over k in ascending
-// 16-wide steps, one m16n8k16 HMMA per step, in the wmma 16x16x16
-// template and in pipe_gemm_kernel alike (no split over k).
+// out bit for bit the same each time, as rxtpu's recomputation assumes, and
+// so does cp in K6.1, K6.4, K7.1 and K7.4: each output is summed from a
+// zero f32 accumulator over k in ascending 16-wide steps, one m16n8k16 HMMA
+// per step, whatever the tile (no split over k).
 //
 // Rounding follows the plain PyTorch version op by op: every v*scale + shift
 // and every BN-backward term is a separately rounded __fmul_rn / __fadd_rn /
@@ -78,40 +76,34 @@
 // differs from the plain version.
 //
 // Bound: at ResNet-50's shapes (V = 48 views) most bodies move more bytes
-// than their tensor-core time: e.g. K6.1 at a stage-1 identity block reads
-// 203.5 MB of x and writes 50.9 MB of c1, 0.076 ms at 3.35 TB/s, against
-// 13.0 GFLOP, 0.013 ms at 989 TFLOP/s. K6.4, K7.1, K7.2 and K7.4 are bound
-// by bytes too (K6.4 at a stage-1 identity block reads c2 and res and
-// writes y, 458 MB = 0.137 ms, against 13.0 GFLOP = 0.013 ms; K7.1 reads
-// dy, y and c2, as many bytes; dc3 alone: c2, dy and y read, dc3 written,
-// 661 MB = 0.197 ms against 0.04 ms of products), so their kernels keep
-// copies in flight rather than reaching for wgmma's rate. The 3x3 bodies
-// are near the balance or past it: K6.2 at a stage-1 block does 29.3
-// GFLOP (0.030 ms) against 102 MB (0.030 ms), at stage 4 32.6 GFLOP (0.033
-// ms) against 19 MB; K7.3 twice the products; mma.sync from a cp.async
-// ring is their rate, and dc2 still goes through device memory. The wmma
-// template (K6.1, K6.3) stages its tiles through shared memory without a
-// copy pipeline and re-reads A once per 64-wide column tile; dc2, dc1, dcp
-// and dc3 are materialized in device memory. chip_smoke.py prints each
-// body's time beside its bound.
+// than their tensor-core time: e.g. K6.1 (rxtpu/ops/fused_block.py:257) at
+// a stage-1 identity block reads 203.5 MB of x and writes 50.9 MB of c1,
+// 0.076 ms at 3.35 TB/s, against 13.0 GFLOP, 0.013 ms at 989 TFLOP/s; at
+// stage 4 37.5 MB (0.011 ms) against 14.5 GFLOP (0.015 ms). K6.3
+// (rxtpu/ops/fused_block.py:365) reads c2 and w3 and writes two vectors:
+// near the balance at stage 1 (50.9 MB = 0.015 ms against 13.0 GFLOP =
+// 0.013 ms), bound by its products past it (stage 4: 9.2 MB against 14.5
+// GFLOP). K6.4, K7.1, K7.2 and K7.4 are bound by bytes too (K6.4 at a
+// stage-1 identity block reads c2 and res and writes y, 458 MB = 0.137 ms,
+// against 13.0 GFLOP = 0.013 ms; K7.1 reads dy, y and c2, as many bytes;
+// dc3 alone: c2, dy and y read, dc3 written, 661 MB = 0.197 ms against
+// 0.04 ms of products), so their kernels keep copies in flight rather than
+// reaching for wgmma's rate. The 3x3 bodies are near the balance or past
+// it: K6.2 at a stage-1 block does 29.3 GFLOP (0.030 ms) against 102 MB
+// (0.030 ms), at stage 4 32.6 GFLOP (0.033 ms) against 19 MB; K7.3 twice
+// the products; mma.sync from a cp.async ring is their rate. K6.1 reads x
+// F / BN times (once at stages 1-3, twice at stage 4), K6.3 c2 and its
+// BN-ReLU 4F / 256 times; dc2, dc1, dcp and dc3 are materialized in device
+// memory. chip_smoke.py prints each body's time beside its bound.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int kBM = 64;           // rows per tile
-constexpr int kBN = 64;           // output channels per tile
-constexpr int kBK = 32;           // reduction depth per stage
-constexpr int kThreads = 128;     // four warps, each a 32x32 quarter of the tile
-constexpr int kLdA = kBK + 8;     // staged A row pitch (bf16)
-constexpr int kLdW = kBN + 8;     // staged W row pitch (bf16)
-constexpr int kLdC = kBN + 4;     // staged result row pitch (f32)
 constexpr int kReduceLanes = 8;   // partial sums per output, per reduce block
 constexpr int kReduceGroup = 64;  // partials summed by one block before a second pass
 
@@ -122,9 +114,9 @@ enum Epi {
   kResidual = 2,    // store bf16(bf16(acc)*scale + shift) (the projection's BN)
   kOutput = 3,      // store bf16(max(bf16(bf16(acc)*scale + shift) + res, 0)) (y)
   kBnSums = 4,      // sums of g3 and g3*xhat, xhat = (bf16(acc) - mean)*inv
-  kBnBackward = 5,  // store bf16(k*(g3 - da - xhat*db)) (dc3, dcp; pipe_gemm_kernel)
+  kBnBackward = 5,  // store bf16(k*(g3 - da - xhat*db)) (dc3, dcp)
   kReluGrad = 6,    // store g = bf16(acc*[a > 0]), a = bn_relu(c); sums of g and g*xhat(c)
-  kInputGrad = 7,   // store bf16(acc [+ g3]) (dx; pipe_gemm_kernel)
+  kInputGrad = 7,   // store bf16(acc [+ g3]) (dx)
 };
 
 }  // namespace
@@ -168,9 +160,8 @@ struct GemmArgs {
   const float* e_k;
   const float* e_da;
   const float* e_db;
-  float* part0;         // [ceil(rows / 64), n] partial sums (pipe_gemm_kernel: [ceil(rows / 128), 2, n])
-  float* part1;
-  const bf16* w2;       // pipe_gemm_kernel with W^T [n, k]: rows k >= k_split come from w2 [n, k - k_split]
+  float* part0;         // [ceil(rows / BM), 2, n] partial sums
+  const bf16* w2;       // with W^T [n, k]: rows k >= k_split come from w2 [n, k - k_split]
   int k_split;          // w [n, k_split]
 };
 
@@ -222,115 +213,8 @@ __device__ __forceinline__ float bn_relu(float v, float scale, float shift) {
   return __bfloat162float(__float2bfloat16_rn(fmaxf(__fadd_rn(__fmul_rn(v, scale), shift), 0.0f)));
 }
 
-// 8 consecutive channels k..k+7 of A at row r; zero past the slab's end
-template <int MODE>
-__device__ __forceinline__ uint4 a_chunk(const ASrc& a, long long rows, long long r, int k) {
-  if (r >= rows) return make_uint4(0u, 0u, 0u, 0u);
-  Pack8 v;
-  v.u = *reinterpret_cast<const uint4*>(a.ptr + r * a.ld + a.col + k);
-  if (MODE == kBnRelu) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 x = __bfloat1622float2(v.h[j]);
-      v.h[j] = __floats2bfloat162_rn(
-          bn_relu(x.x, __ldg(a.scale + k + 2 * j), __ldg(a.shift + k + 2 * j)),
-          bn_relu(x.y, __ldg(a.scale + k + 2 * j + 1), __ldg(a.shift + k + 2 * j + 1)));
-    }
-  }
-  return v.u;
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int MODE, int EPI>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(const GemmArgs g) {
-  static_assert(MODE != kTapBnRelu && MODE != kTapAdjoint, "the template reads no taps");
-  static_assert(EPI == kStoreStats || EPI == kStats, "the template's epilogues: c1, cp and c3 sums");
-  // the results [64][68] f32, then a second [64][68] f32 array for the sums,
-  // which lies over the staged operand tiles
-  __shared__ __align__(128) unsigned char smem[2 * kBM * kLdC * 4];
-  float* cs = reinterpret_cast<float*>(smem);
-  float* ss = cs + kBM * kLdC;
-  bf16* as = reinterpret_cast<bf16*>(ss);  // [64][40]
-  bf16* ws = as + kBM * kLdA;              // [32][72]
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const long long m0 = static_cast<long long>(blockIdx.y) * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-  const int a_row = tid / 4, a_kq = (tid % 4) * 8;
-  for (int k0 = 0; k0 < g.k; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = a_row + 32 * i;
-      *reinterpret_cast<uint4*>(as + row * kLdA + a_kq) =
-          a_chunk<MODE>(g.a, g.rows, m0 + row, k0 + a_kq);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kThreads * i;
-      const int kr = c / 8, nq = (c % 8) * 8;
-      *reinterpret_cast<uint4*>(ws + kr * kLdW + nq) =
-          *reinterpret_cast<const uint4*>(g.w + static_cast<long long>(k0 + kr) * g.n + n0 + nq);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * kLdA + kk, kLdA);
-        wmma::load_matrix_sync(fb[i], ws + kk * kLdW + wn * 32 + i * 16, kLdW);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * kLdC + wn * 32 + j * 16, acc[i][j], kLdC,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  for (int e = tid; e < kBM * kBN; e += kThreads) {
-    const int row = e / kBN, col = e % kBN;
-    const long long r = m0 + row;
-    float v1 = 0.0f, v2 = 0.0f;
-    if (r < g.rows) {
-      const bf16 b = __float2bfloat16_rn(cs[row * kLdC + col]);
-      if (EPI == kStoreStats) g.out[r * g.ldo + g.out_col + n0 + col] = b;
-      v1 = __bfloat162float(b);
-      v2 = __fmul_rn(v1, v1);
-    }
-    cs[row * kLdC + col] = v1;
-    ss[row * kLdC + col] = v2;
-  }
-  __syncthreads();
-  // one thread per (array, column) sums the tile's 64 rows in order
-  const float* src = tid < kBN ? cs : ss;
-  const int col = tid % kBN;
-  float s = 0.0f;
-  for (int row = 0; row < kBM; ++row) s = __fadd_rn(s, src[row * kLdC + col]);
-  float* part = tid < kBN ? g.part0 : g.part1;
-  part[static_cast<long long>(blockIdx.y) * g.n + n0 + col] = s;
 }
 
 // out[g * size + i] = sum over the partials c in [g * per, (g + 1) * per) of
@@ -402,7 +286,7 @@ __global__ void __launch_bounds__(256) bn_backward_kernel(const BnBwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// The pipelined 1x1 mainloop (K7.2's and K7.4's GEMMs and weight gradients)
+// The pipelined mainloop (every body's GEMMs and weight gradients)
 // ---------------------------------------------------------------------------
 
 constexpr int kPipeThreads = 256;  // eight warps: 2 along the rows x 4 along the columns
@@ -483,9 +367,7 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   }
 }
 
-// d += a b over one m16n8k16 step (f32 accumulators), the HMMA that wmma's
-// 16x16x16 bf16 lowers to on sm_90: so c3 sums in the same order as the
-// wmma template computes it
+// d += a b over one m16n8k16 step (f32 accumulators)
 __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm volatile(
@@ -547,17 +429,17 @@ __device__ __forceinline__ void bn_relu_chunks(bf16* const (&p)[N], unsigned liv
 // Shared-memory plan of pipe_gemm_kernel<MODE, EPI, BN, WNK, BM>: the ring
 // of (A [BM][40], W [32][BN + 8] or W^T [BN][32], its 16-byte chunks
 // XOR-swizzled by row) stages, which the epilogue reuses to stage its bf16
-// output tile; the aux tiles (dy and y, c, or res; none for kStoreStats and
-// kResidual) [BM][BN + 8]; the two warp rows' column sums (in the ring for
-// kBnSums, which stores no tile); the aux tiles' mbarrier. The ring takes
-// as many stages as fit, up to four.
+// output tile; the aux tiles (dy and y, c, or res; none for kStoreStats,
+// kStats and kResidual) [BM][BN + 8]; the two warp rows' column sums (in
+// the ring for kStats and kBnSums, which store no tile); the aux tiles'
+// mbarrier. The ring takes as many stages as fit, up to four.
 // Where the accumulators leave room for two blocks per SM (BM = 64, or BN
 // <= 128), a block keeps within half an SM's shared memory, so one block's
 // epilogue overlaps the other's copies.
 template <int EPI, int BN, bool WNK, int BM>
 struct PipeGemmSmem {
   static constexpr bool kTwoPerSm = BM == 64 || BN <= 128;  // registers allow two blocks per SM
-  static constexpr bool kStore = EPI != kBnSums;            // an output tile leaves the block
+  static constexpr bool kStore = EPI != kBnSums && EPI != kStats;  // stores an output tile
   static constexpr int kLdW = WNK ? kPipeBK : BN + 8;
   static constexpr int kLdX = BN + 8;
   static constexpr int kAux = EPI == kBnBackward || EPI == kInputGrad || EPI == kBnSums ? 2
@@ -576,7 +458,7 @@ struct PipeGemmSmem {
   static constexpr int kBytes = kBar + 8;
   static_assert(kStages >= 2, "a ring of at least two stages");
   static_assert(kStore ? kAuxTile * 2 <= kRing : kSumBytes <= kRing,
-                "the output tile, or kBnSums's column sums, lie in the ring");
+                "the output tile, or kStats's and kBnSums's column sums, lie in the ring");
 };
 
 // out[r, n] = sum_k A(r, k) W[k, n] over a BM x BN tile, A stored,
@@ -596,9 +478,9 @@ struct PipeGemmSmem {
 // mbarrier, so their bytes are in flight during the products and the ring
 // never waits for them. The epilogue reads its columns' per-channel
 // vectors once, works on the accumulator registers, stages the bf16 tile
-// in shared memory and stores it in 16-byte rows (no tile for kBnSums);
-// its column sums go lanes (shuffles) -> warp rows -> one pair per (BM-row
-// tile, channel), in a fixed order.
+// in shared memory and stores it in 16-byte rows (no tile for kStats and
+// kBnSums); its column sums go lanes (shuffles) -> warp rows -> one pair
+// per (BM-row tile, channel), in a fixed order.
 template <int MODE, int EPI, int BN, bool WNK, int BM>
 __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::kTwoPerSm ? 2 : 1)
     pipe_gemm_kernel(const GemmArgs g) {
@@ -610,7 +492,8 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
   constexpr int NT = BN / 32;  // n8 tiles per warp (BN / 4 columns)
   constexpr int kCpr = BN / 8; // 16-byte chunks per tile row
   constexpr int kArows = BM * 4 / kPipeThreads;  // A rows this thread copies in every stage
-  constexpr bool kSumEpi = EPI == kReluGrad || EPI == kBnSums || EPI == kStoreStats;
+  constexpr bool kSumEpi =
+      EPI == kReluGrad || EPI == kBnSums || EPI == kStoreStats || EPI == kStats;
   static_assert(kArows * S::kStages <= 32, "one validity bit per (slot, chunk)");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
@@ -867,9 +750,9 @@ __global__ void __launch_bounds__(kPipeThreads, PipeGemmSmem<EPI, BN, WNK, BM>::
             bn[1] = fmaxf(__fadd_rn(round_bf16(bn[1]), res.y), 0.0f);
           }
           *reinterpret_cast<__nv_bfloat162*>(stage + o) = __floats2bfloat162_rn(bn[0], bn[1]);
-        } else if (EPI == kStoreStats) {  // v = bf16(acc); sums of v and v*v
+        } else if (EPI == kStoreStats || EPI == kStats) {  // v = bf16(acc); sums of v and v*v
           const __nv_bfloat162 pair = __floats2bfloat162_rn(acc2[0], acc2[1]);
-          *reinterpret_cast<__nv_bfloat162*>(stage + o) = pair;
+          if (EPI == kStoreStats) *reinterpret_cast<__nv_bfloat162*>(stage + o) = pair;
           if (m0 + row < g.rows) {
             const float2 v = __bfloat1622float2(pair);
             s1[0] = __fadd_rn(s1[0], v.x);
@@ -1139,27 +1022,6 @@ int done() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
-// One GEMM of the wmma template with its prologue and epilogue (K6.1 and
-// K6.3); grid (n / 64, ceil(rows / 64)).
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for a (mode, epi) pair that no body uses.
-extern "C" int rxtpu_fb_gemm(const GemmArgs* args, void* stream) {
-  const GemmArgs& a = *args;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.rows == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(a.n / kBN, static_cast<unsigned>((a.rows + kBM - 1) / kBM));
-#define RXTPU_FB_CASE(M, E)                                  \
-  if (a.mode == M && a.epi == E) {                           \
-    gemm_kernel<M, E><<<grid, kThreads, 0, st>>>(a);         \
-    return done();                                           \
-  }
-  RXTPU_FB_CASE(kStored, kStoreStats)      // K6.1 c1
-  RXTPU_FB_CASE(kStored, kStats)           // K6.1 projection sums
-  RXTPU_FB_CASE(kBnRelu, kStats)           // K6.3 c3 sums
-#undef RXTPU_FB_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // out[i] = sum_c part[c * size + i] over c in [0, chunks), in a fixed order;
 // above 64 partials a first pass sums groups of 64 into tmp
 // [ceil(chunks / 64), size].
@@ -1245,11 +1107,13 @@ int launch_pipe_wgrad(const WgradArgs& a, unsigned chunks, cudaStream_t st) {
 
 }  // namespace
 
-// One GEMM on the pipelined mainloop (K6.2's c2, K6.4's residual and y,
-// K7.1's BN3 sums, K7.2's dc3 and g2, K7.3's g1, K7.4's dcp and dx); grid
-// (n / BN, ceil(rows / BM)), BM 128 for c2, g2 and g1 and 64 for the
-// others; the epilogues with sums write one pair per (BM-row tile,
-// channel) to part0 [tiles, 2, n]. k a multiple of 32, n of 64; c2 reads
+// One GEMM on the pipelined mainloop (K6.1's c1 and projection sums,
+// K6.2's c2, K6.3's c3 sums, K6.4's residual and y, K7.1's BN3 sums, K7.2's
+// dc3 and g2, K7.3's g1, K7.4's dcp and dx); grid (n / BN, ceil(rows /
+// BM)), BM 128 for c1, c2, g2 and g1 and 64 for the others (c1: 128 was
+// faster than 64 at all five ResNet-50 block shapes, PERF.md section 6);
+// the epilogues with sums write one pair per (BM-row tile, channel) to
+// part0 [tiles, 2, n]. k a multiple of 32, n of 64; c2 reads
 // w2 as [k, n] (k = 9 kc, kc a multiple of 64); g2, g1 and dx read W^T
 // [n, k] as stored, g1 per tap from w2 [9, n, kc].
 extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
@@ -1258,12 +1122,21 @@ extern "C" int rxtpu_fb_pipe_gemm(const GemmArgs* args, void* stream) {
   if (a.rows == 0) return static_cast<int>(cudaSuccess);
   if (a.k % kPipeBK != 0 || a.n % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool taps_ok = a.a.kc % 64 == 0 && a.k == 9 * a.a.kc && a.k_split == 0;
+  if (a.mode == kStored && a.epi == kStoreStats) {  // K6.1 c1, W = w1
+    return launch_pipe_gemm<kStored, kStoreStats, false, 128>(a, st);
+  }
+  if (a.mode == kStored && a.epi == kStats) {  // K6.1 projection sums: the residual's, W = wp
+    return launch_pipe_gemm<kStored, kStats, false, 64>(a, st);
+  }
   if (a.mode == kTapBnRelu && a.epi == kStoreStats) {  // K6.2 c2, W = w2 [9 kc, n]
     if (!taps_ok) return static_cast<int>(cudaErrorInvalidValue);
     return launch_pipe_gemm<kTapBnRelu, kStoreStats, false, 128, 128>(a, st);
   }
   if (a.mode == kStored && a.epi == kResidual) {  // K6.4 projection residual, W = wp
     return launch_pipe_gemm<kStored, kResidual, false, 64>(a, st);
+  }
+  if (a.mode == kBnRelu && a.epi == kStats) {  // K6.3 c3 sums: dc3's mainloop, W = w3
+    return launch_pipe_gemm<kBnRelu, kStats, false, 64>(a, st);
   }
   if (a.mode == kBnRelu && a.epi == kOutput) {  // K6.4 y, W = w3
     return launch_pipe_gemm<kBnRelu, kOutput, false, 64>(a, st);

@@ -243,16 +243,16 @@ _STORED, _BN_RELU, _TAP_BN_RELU, _TAP_ADJOINT = range(4)
 (_STORE_STATS, _STATS, _RESIDUAL, _OUTPUT, _BN_SUMS, _BN_BACKWARD, _RELU_GRAD,
  _INPUT_GRAD) = range(8)
 _SUM_EPIS = (_STORE_STATS, _STATS, _BN_SUMS, _RELU_GRAD)
-_ROW_TILE = 64  # rows per block of the template GEMM (K6.1, K6.3): one partial sum per tile
-# the (mode, epilogue) pairs of K6.2, K6.4 and K7.1-K7.4, on the pipelined
-# mainloop, and its rows per block; g2, g1 and dx read their weights
-# transposed, as stored ([n, k]: w3 for g2, w2[tap] for g1, w1 and wp for dx)
-_PIPE_ROW_TILES = {(_TAP_BN_RELU, _STORE_STATS): 128, (_STORED, _RESIDUAL): 64,
-                   (_BN_RELU, _OUTPUT): 64,
-                   (_BN_RELU, _BN_SUMS): 64, (_STORED, _BN_SUMS): 64,
-                   (_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
-                   (_STORED, _RELU_GRAD): 128, (_TAP_ADJOINT, _RELU_GRAD): 128,
-                   (_STORED, _INPUT_GRAD): 64}
+# the (mode, epilogue) pairs of the eight bodies and the pipelined
+# mainloop's rows per block for each: one pair of partial sums per tile;
+# g2, g1 and dx read their weights transposed, as stored ([n, k]: w3 for
+# g2, w2[tap] for g1, w1 and wp for dx)
+_ROW_TILES = {(_STORED, _STORE_STATS): 128, (_STORED, _STATS): 64, (_BN_RELU, _STATS): 64,
+              (_TAP_BN_RELU, _STORE_STATS): 128, (_STORED, _RESIDUAL): 64, (_BN_RELU, _OUTPUT): 64,
+              (_BN_RELU, _BN_SUMS): 64, (_STORED, _BN_SUMS): 64,
+              (_BN_RELU, _BN_BACKWARD): 64, (_STORED, _BN_BACKWARD): 64,
+              (_STORED, _RELU_GRAD): 128, (_TAP_ADJOINT, _RELU_GRAD): 128,
+              (_STORED, _INPUT_GRAD): 64}
 _WT_PAIRS = ((_STORED, _RELU_GRAD), (_TAP_ADJOINT, _RELU_GRAD), (_STORED, _INPUT_GRAD))
 _PIPE_ROWS = 32       # the pipelined weight gradient's chunks are multiples of this many rows
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -268,8 +268,8 @@ class _GemmArgs(ctypes.Structure):
                 ("mode", _int), ("epi", _int), ("out", _vp), ("ldo", _ll), ("out_col", _int),
                 ("add_g3", _int), ("aux0", _vp), ("aux1", _vp), ("ldaux", _ll),
                 ("e_scale", _vp), ("e_shift", _vp), ("e_mean", _vp), ("e_inv", _vp),
-                ("e_k", _vp), ("e_da", _vp), ("e_db", _vp), ("part0", _vp), ("part1", _vp),
-                ("w2", _vp), ("k_split", _int)]
+                ("e_k", _vp), ("e_da", _vp), ("e_db", _vp), ("part0", _vp), ("w2", _vp),
+                ("k_split", _int)]
 
 
 class _WgradArgs(ctypes.Structure):
@@ -289,8 +289,8 @@ def _lib():
     from rxtpu_torch.ops._build import load_library
 
     lib = load_library("fused_block")
-    for name, args in (("rxtpu_fb_gemm", _GemmArgs), ("rxtpu_fb_pipe_gemm", _GemmArgs),
-                       ("rxtpu_fb_pipe_wgrad", _WgradArgs), ("rxtpu_fb_bn_backward", _BnBwdArgs)):
+    for name, args in (("rxtpu_fb_pipe_gemm", _GemmArgs), ("rxtpu_fb_pipe_wgrad", _WgradArgs),
+                       ("rxtpu_fb_bn_backward", _BnBwdArgs)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(args), _vp]
         fn.restype = _int
@@ -345,29 +345,22 @@ def _gemm(mode, epi, a: _ASrc, w, rows, device, *, w2=None, out=None, out_col=0,
         k_split = w.shape[1]
     else:
         (k, n), k_split = w.shape, 0
-    sums = epi in _SUM_EPIS
-    pipe = (mode, epi) in _PIPE_ROW_TILES
-    row_tile = _PIPE_ROW_TILES.get((mode, epi), _ROW_TILE)
+    row_tile = _ROW_TILES[(mode, epi)]
     tiles = -(-rows // row_tile)
     if tiles > 65535:  # one grid row per tile of rows
         raise ValueError(f"the fused_block kernels take at most {65535 * row_tile} rows, got "
                          f"{rows}")
-    # the pipelined kernel writes both sums of a tile side by side: one reduction
-    shapes = [(tiles, 2, n)] if pipe else [(tiles, n)] * 2
-    parts = [torch.empty(shape, dtype=F32, device=device) for shape in (shapes if sums else ())]
+    # both sums of a tile side by side: one reduction
+    part = torch.empty((tiles, 2, n), dtype=F32, device=device) if epi in _SUM_EPIS else None
     args = _GemmArgs(
         a=a, w=_p(w), rows=rows, k=k, n=n, mode=mode, epi=epi, out=_p(out),
         ldo=0 if out is None else out.shape[1], out_col=out_col, add_g3=int(add_g3),
         aux0=_p(aux0), aux1=_p(aux1), ldaux=0 if aux0 is None else aux0.shape[1],
         e_scale=_p(e_scale), e_shift=_p(e_shift), e_mean=_p(e_mean), e_inv=_p(e_inv),
         e_k=_p(e_k), e_da=_p(e_da), e_db=_p(e_db),
-        part0=_p(parts[0]) if sums else None, part1=_p(parts[-1]) if sums and not pipe else None,
-        w2=_p(w2), k_split=k_split)
-    launch = _lib().rxtpu_fb_pipe_gemm if pipe else _lib().rxtpu_fb_gemm
-    _ok(launch(ctypes.byref(args), _stream(w)), "gemm")
-    if not sums:
-        return None
-    return tuple(_reduce(parts[0])) if pipe else tuple(_reduce(p) for p in parts)
+        part0=_p(part), w2=_p(w2), k_split=k_split)
+    _ok(_lib().rxtpu_fb_pipe_gemm(ctypes.byref(args), _stream(w)), "gemm")
+    return None if part is None else tuple(_reduce(part))
 
 
 @functools.lru_cache(maxsize=None)

@@ -37,6 +37,7 @@ full width).
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import jax
@@ -587,6 +588,80 @@ def test_port_cli_trains_with_fuse_blocks(tmp_path, monkeypatch):
     assert list(sub.id_code) == [r["id_code"] for r in fx["test_rows"]]
     assert sub.sirna.between(0, 7).all()
     assert os.path.exists("models/best_model_fb.ckpt")
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pipe_sums_loop(v, bm):
+    """The pipelined mainloop's sums epilogue and ``reduce_kernel``, one f32
+    add at a time: per BM-row tile and warp row each lane g sums its rows
+    (``mt*16 + g + 8*h``, those inside the slab), the lanes meet by shuffles
+    across ``xor 4, 8, 16`` (lane bits 1, 2, 4 of g), warp row 0 plus warp
+    row 1; then, above 64 tiles, groups of 64 first, and in a group lane y
+    sums partials y, y + 8, ... before the eight lanes are added in order."""
+    f32 = np.float32
+    rows, n = v.shape
+    tiles = -(-rows // bm)
+    part = np.zeros((tiles, n), f32)
+    for t in range(tiles):
+        for c in range(n):
+            halves = []
+            for wm in range(2):
+                lanes = []
+                for g in range(8):
+                    s = f32(0)
+                    for mt in range(bm // 32):
+                        for h in range(2):
+                            r = t * bm + wm * (bm // 2) + mt * 16 + g + 8 * h
+                            if r < rows:
+                                s = f32(s + v[r, c])
+                    lanes.append(s)
+                for m in (1, 2, 4):
+                    lanes = [f32(lanes[g] + lanes[g ^ m]) for g in range(8)]
+                halves.append(lanes[0])
+            part[t, c] = f32(halves[0] + halves[1])
+
+    def reduce(p):
+        out = np.zeros(n, f32)
+        for i in range(n):
+            lanes = []
+            for y in range(8):
+                s = f32(0)
+                for k in range(y, p.shape[0], 8):
+                    s = f32(s + p[k, i])
+                lanes.append(s)
+            total = f32(0)
+            for s in lanes:
+                total = f32(total + s)
+            out[i] = total
+        return out
+
+    if tiles > 64:
+        part = np.stack([reduce(part[g:g + 64]) for g in range(0, tiles, 64)])
+    return reduce(part)
+
+
+@pytest.mark.parametrize("rows,n,bm", [(200, 64, 64), (4500, 8, 64), (200, 16, 128)])
+def test_chip_smoke_pipe_sums_order(rows, n, bm):
+    """``chip_smoke.fb_pipe_sums``, which phase 2's ties on the card use to
+    hold K6.3's and K6.1's sums bit for bit to K6.4's c3 and cp, against a
+    direct loop over the same order on a ragged slab (a partial last tile;
+    4500 rows make 71 tiles, so the grouped first pass runs), and equal to
+    ``torch.sum`` on integer values, where every order is exact."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(rows + n + bm)
+    v = (rng.standard_normal((rows, n)) * rng.uniform(0.1, 10.0, n)).astype(np.float32)
+    got = cs.fb_pipe_sums(torch.from_numpy(v), bm).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), _pipe_sums_loop(v, bm).view(np.int32))
+    ints = torch.from_numpy(rng.integers(-100, 101, (rows, n)).astype(np.float32))
+    assert torch.equal(cs.fb_pipe_sums(ints, bm), ints.sum(0))
 
 
 @pytest.mark.gpu
