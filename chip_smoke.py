@@ -13,10 +13,14 @@ Phases, each ending the run with a non-zero exit when it fails:
    (288 planes of 512^2, crop 364 and an odd 363, shifts past both clamps,
    uint8 and f32 input, every reversal pair, f32 and bf16 out); then the
    composed shear augment of one [16, 3, 6, 512, 512] batch against the
-   composed plain path; K5 (fused_stem) in bf16 and f32 at the validation
-   shape [48, 6, 512^2] cropped to 364, the test shape [96, 6, 512^2]
-   uncropped and an odd 363 crop, TF32 off for the plain version: bf16
-   within one ulp, f32 within 1e-5 of max|out|; K6/K7 (fused_block, the
+   composed plain path, and K4's events and device time; K5 (fused_stem)
+   in bf16 and f32 at the validation shape [48, 6, 512^2] cropped to 364,
+   the test shape [96, 6, 512^2] uncropped, an odd 363 crop, one view at
+   crop 48 and three at crop 47 of 64^2 sources (a tile wider than the maps,
+   the persistent loop's tail), TF32 off for the plain version: bf16 within
+   one ulp, f32 within 1e-5 of max|out|, every output bit-equal over two
+   launches, and the events and device time of the validation and test
+   launches; K6/K7 (fused_block, the
    eight bodies of the fused bottleneck) at ResNet-50's five block shapes
    (48 views) and two ragged ones (3 views of 5x7, less than one row
    tile): bf16 outputs within two ulps of max|plain| with at most 1e-3 of
@@ -41,7 +45,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    phase 3 trained, then again with ``--predict-scan-window 2`` (rxtpu's
    scanned predict window; the port predicts one batch per step whatever
    the window): the same submission, byte for byte;
-4b. the K5 path at full width on phase 3's last checkpoint: ``EvalStep`` and
+4b. the K5 path at full width on phase 3's last checkpoint: K5 against its
+   plain version on the folded stem (bf16 within one ulp, f32 within 1e-5
+   of max|out|, and the f32 gaps against the bound the exact path assumes);
+   ``EvalStep`` and
    ``Predictor`` with ``fused_stem=True`` against the unfused steps on one
    validation batch (G=3, crop 364) and one test batch (G=6, 512), K5
    launched once per call and K1 not at all, and ``predict_dataset`` over
@@ -54,12 +61,15 @@ Phases, each ending the run with a non-zero exit when it fails:
    against the unfused step;
 6. learning: the loss falls over train steps on one fixed full-width batch,
    unfused and fused;
-7. timings by CUDA events after warm-up: K2-K4 next to their bounds and
-   plain versions, the whole augment next to one ``F.grid_sample`` warp,
+7. timings by CUDA events after warm-up: K2-K4 next to their bounds,
+   device times and plain versions, the whole augment next to one
+   ``F.grid_sample`` warp,
    the train step (ms, views/s, peak memory, device time by kernel with the
    augment's share), and K1 and the predict step as before; K5 at the
-   validation and test shapes next to its bounds, its plain version and the
-   unfused stem (K1, cuDNN conv with bias, ReLU, max pool); the eval and
+   validation and test shapes, with its device time, next to its bounds, its
+   plain version, cuDNN's bf16 conv 7x7/2 with bias alone (its library call,
+   the faster of NCHW and channels-last) and the unfused stem (K1, that
+   conv, ReLU, max pool); the eval and
    predict steps fused and unfused (ms, views/s, memory) and a profile of
    the fused predict step; the train step with ``--fuse-blocks on`` beside
    the unfused one (ms, views/s, memory, device time by kernel; each
@@ -234,6 +244,17 @@ def bf16_gap(out, ref):
     m = torch.maximum(a.abs(), b.abs())
     ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), torch.zeros_like(m))
     return float((d > 0).float().mean()), int((d > ulp).sum()), float(d.max())
+
+
+def k5_f32_gaps(out, ref):
+    """K5's f32 output (the tensor cores' sums) against its plain version:
+    the largest gap where |plain| < 2^-8, and the largest share of the
+    bound that the kernel's bf16 exact path assumes, 2^-17 + 2^-18 |plain|
+    (its margin is the inverse)."""
+    d, r = (out - ref).abs(), ref.abs()
+    small = r < 2.0 ** -8
+    share = d / (2.0 ** -17 + 2.0 ** -18 * r)
+    return float(d[small].max()) if bool(small.any()) else 0.0, float(share.max())
 
 
 def k5_work(n, crop):
@@ -698,6 +719,279 @@ def fb_launch_breakdown(dev):
     return per_step
 
 
+def shear_phase2(dev):
+    """K2-K4 against their plain versions, bit for bit, at the train shapes;
+    K4's events and device time at crop 364. Returns (max error per pass,
+    the crop-364 inputs, the per-plane scale and bias)."""
+    import torch
+    from rxtpu_torch.ops import shear as ps
+
+    shear_names = ("shear_pass", "shear_pass_rows", "shear_pass_finish")
+    phase("2 K2-K4 shear passes against their plain versions (bit equality)")
+    sgen = torch.Generator(device=dev).manual_seed(1)
+    x8 = torch.randint(0, 256, (P, SRC, SRC), dtype=torch.uint8, device=dev, generator=sgen)
+    sc = torch.rand(P, device=dev, generator=sgen) * 0.05 + 0.01
+    bi = -torch.rand(P, device=dev, generator=sgen) * 3.0
+    shear_err = dict.fromkeys(shear_names, 0.0)
+    timing_inputs = {}
+
+    def check(name, out, ref, label):
+        torch.cuda.synchronize()
+        bad, err = bitwise_diff(out, ref)
+        shear_err[name] = max(shear_err[name], err)
+        print(f"{name:18s} {label:42s} mismatches {bad} max_abs_diff {err}")
+        if bad:
+            fail(f"{name} differs from its plain version ({label})")
+
+    def shifts(rows, lo, hi):
+        # past both ends: k reaches 0 and kmax (the clamps)
+        return torch.rand(P, rows, device=dev, generator=sgen) * (lo + hi + 16) - lo - 8
+
+    for crop in (CROP, CROP - 1):
+        pl, pr = ps._pads(0.41422 * SRC / 2, 0, SRC, SRC)
+        t1 = shifts(SRC, pl, pr)
+        k, f = ps.shift_params(t1, SRC, SRC, pl, pr)
+        clamps = (int((k == 0).sum()), int((k == SRC + pl + pr - SRC - 1).sum()))
+        for xin in (x8, x8.float()):
+            s1 = ps.shear_pass(xin, t1, SRC, pl, pr)
+            check("shear_pass", s1, ps.shear_pass_reference(xin, k, f, SRC, pl, pr,
+                                                            torch.ones_like(sc),
+                                                            torch.zeros_like(bi)),
+                  f"{str(xin.dtype)} pads {pl}/{pr} clamps {clamps}")
+        pt, pb = ps._pads(0.70712 * SRC / 2, SRC - crop, SRC, crop, lane_align=False)
+        t2 = shifts(SRC, pt, pb + SRC - crop)
+        k, f = ps.shift_params(t2, SRC, crop, pt, pb)
+        s2 = ps.shear_pass_rows(s1, t2, crop, pt, pb)
+        check("shear_pass_rows", s2, ps.shear_pass_rows_reference(s1, k, f, crop, pt, pb),
+              f"crop {crop} pads {pt}/{pb}")
+        pl3, pr3 = ps._pads(0.41422 * SRC / 2, SRC - crop, SRC, crop)
+        t3 = shifts(crop, pl3, pr3 + SRC - crop)
+        k, f = ps.shift_params(t3, SRC, crop, pl3, pr3)
+        for rr in (False, True):
+            for cr in (False, True):
+                rrev = torch.full((P,), rr, device=dev)
+                crev = torch.full((P,), cr, device=dev)
+                for dt in (torch.bfloat16, torch.float32):
+                    out = ps.shear_pass_finish(s2, t3, crop, pl3, pr3, sc, bi, rrev, crev, dt)
+                    ref = ps.shear_pass_finish_reference(s2, k, f, crop, pl3, pr3, sc, bi,
+                                                         rrev, crev, dt)
+                    check("shear_pass_finish", out, ref,
+                          f"crop {crop} rrev {rr:d} crev {cr:d} {str(dt)}")
+        if crop == CROP:
+            timing_inputs = dict(t1=t1, pads1=(pl, pr), s1=s1, t2=t2, pads2=(pt, pb), s2=s2,
+                                 t3=t3, pads3=(pl3, pr3))
+
+    ti = timing_inputs
+    rrev, crev = (torch.arange(P, device=dev) % m == 0 for m in (2, 3))
+    def k4():
+        return ps.shear_pass_finish(ti["s2"], ti["t3"], CROP, *ti["pads3"], sc, bi, rrev, crev,
+                                    torch.bfloat16)
+    print(f"shear_pass_finish crop {CROP} bf16, both reversals mixed: {cuda_ms(k4, 20):.4f} ms "
+          f"by events, {device_ms(k4, 20):.4f} ms device time")
+    del x8
+    return shear_err, timing_inputs, sc, bi
+
+
+def k5_phase2(dev):
+    """K5 against its plain version (TF32 off for the plain conv): bf16
+    within one ulp, f32 within STEM_F32_REL of max|out|, at the validation,
+    test and odd-crop shapes, one view at crop 48 (a tile wider than the
+    maps) and three at crop 47 on 64^2 sources (the persistent loop's
+    tail); every output bit-equal over two launches; the events and device
+    time of the validation and test launches. Returns (max error, the
+    inputs as ``stem``: a dict of the tensors and ``args(label)``)."""
+    import torch
+    from rxtpu_torch.ops._build import load_library
+    from rxtpu_torch.ops.fused_stem import fused_stem, fused_stem_reference
+
+    phase("2 K5 fused_stem against its plain version (bf16 within one ulp, f32 within "
+          f"{STEM_F32_REL:g} of max|out|)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"plain version's f32 conv: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    lib = load_library("fused_stem")
+    if hasattr(lib, "rxtpu_fused_stem_blocks_per_sm"):  # absent from one-block-per-tile builds
+        per_sm = lib.rxtpu_fused_stem_blocks_per_sm
+        print(f"K5 persistent blocks per SM: bf16 {per_sm(0)}, f32 {per_sm(2)}; "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    fgen = torch.Generator(device=dev).manual_seed(5)
+    imgs = torch.randint(0, 256, (96, 6, SRC, SRC), dtype=torch.uint8, device=dev,
+                         generator=fgen)
+    std = torch.rand(96, 6, device=dev, generator=fgen) * 0.25 + 0.05
+    mean = torch.rand(96, 6, device=dev, generator=fgen) * 0.5 + 0.1
+    small = torch.randint(0, 256, (3, 6, 64, 64), dtype=torch.uint8, device=dev,
+                          generator=fgen)
+    stem = {"imgs": imgs, "scale": (1.0 / (255.0 * std)).float(),
+            "bias": (-mean / std).float(),
+            "w": torch.randn(64, 6, 7, 7, device=dev, generator=fgen) * math.sqrt(2.0 / (64 * 49)),
+            "cb": torch.randn(64, device=dev, generator=fgen) * 0.5,
+            "cases": {"val": (48, CROP, SRC), "test": (96, None, SRC),
+                      "odd crop": (48, CROP - 1, SRC), "1v 64^2/48": (1, 48, 64),
+                      "3v 64^2/47": (3, 47, 64)}}
+
+    def args(label):
+        nv, crop, size = stem["cases"][label]
+        src = imgs if size == SRC else small
+        return (src[:nv], stem["scale"][:nv], stem["bias"][:nv], stem["w"], stem["cb"], crop)
+
+    stem["args"] = args
+    k5_err = 0.0
+    for label in stem["cases"]:
+        for dt in (torch.bfloat16, torch.float32):
+            out = fused_stem(*args(label), dt)
+            again = fused_stem(*args(label), dt)
+            ref = fused_stem_reference(*args(label), dt)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != ref.dtype or not bool(
+                    torch.isfinite(out).all()):
+                fail(f"K5 gave {out.dtype} {tuple(out.shape)} against {ref.dtype} "
+                     f"{tuple(ref.shape)}, or non-finite values")
+            if bitwise_diff(out, again)[0]:
+                fail(f"K5's repeated launches differ ({label}, {dt})")
+            top = float(ref.float().abs().max())
+            if dt == torch.bfloat16:
+                share, over, err = bf16_gap(out, ref)
+                k5_err = max(k5_err, err)
+                print(f"K5 {label:10s} {tuple(out.shape)} bf16: {100 * share:.4f}% of elements "
+                      f"differ, {over} by more than one ulp, max_abs_diff {err} (max|out| {top}); "
+                      f"a second launch bit-equal")
+                if over:
+                    a, b = out.float(), ref.float()
+                    m = torch.maximum(a.abs(), b.abs())
+                    ulp = torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m)) - 7), m)
+                    for i in ((a - b).abs() > ulp).nonzero()[:8].tolist():
+                        print(f"  at {i}: kernel {float(a[tuple(i)])!r}, plain "
+                              f"{float(b[tuple(i)])!r}")
+                    fail(f"K5 differs from its plain version by more than one bf16 ulp ({label})")
+            else:
+                err = float((out - ref).abs().max())
+                k5_err = max(k5_err, err)
+                near, rel = k5_f32_gaps(out, ref)
+                print(f"K5 {label:10s} {tuple(out.shape)} f32: max_abs_diff {err:.6g} = "
+                      f"{err / top:.3g} of max|out| {top:.6g} (bound {STEM_F32_REL:g}); a second "
+                      f"launch bit-equal; gap {near:.3g} below 2^-8, {rel:.3g} of the exact "
+                      f"path's bound")
+                if err > STEM_F32_REL * top:
+                    fail(f"K5 f32 output differs from its plain version ({label})")
+            if top < 1.0 or float((ref == 0).float().mean()) > 0.5:
+                fail(f"K5 check on a degenerate output ({label})")
+    torch.backends.cudnn.allow_tf32 = True
+    for label in ("val", "test"):
+        k5 = lambda: fused_stem(*args(label), torch.bfloat16)  # noqa: E731
+        print(f"K5 {label} bf16: {cuda_ms(k5, 10):.4f} ms by events, {device_ms(k5, 10):.4f} ms "
+              f"device time")
+    return k5_err, stem
+
+
+def k5_timings(dev, stem):
+    """Phase 7's K5: at the validation and test shapes, by events and device
+    time, beside its bound, its plain version (TF32 off), cuDNN's bf16 conv
+    7x7/2 with bias alone (the faster of NCHW and channels-last: the library
+    yardstick) and the unfused stem as the folded predictor runs it (K1, that
+    conv, ReLU, pool). Returns {label: (ms, plain, bound, device, library)}."""
+    import torch
+    import torch.nn.functional as F
+    from rxtpu_torch.ops.crop_norm import crop_normalize
+    from rxtpu_torch.ops.fused_stem import fused_stem, fused_stem_reference, stem_out_size
+
+    k5_times = {}
+    for label in ("val", "test"):
+        nv, crop, _ = stem["cases"][label]
+        size = crop or SRC
+        args = stem["args"](label)
+        ms = cuda_ms(lambda: fused_stem(*args, torch.bfloat16), 20)
+        dev_ms = device_ms(lambda: fused_stem(*args, torch.bfloat16), 20)
+        torch.backends.cudnn.allow_tf32 = False
+        plain_ms = cuda_ms(lambda: fused_stem_reference(*args, torch.bfloat16), 5)
+        torch.backends.cudnn.allow_tf32 = True
+        conv = torch.nn.Conv2d(6, 64, 7, 2, 3).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(stem["w"])
+            conv.bias.copy_(stem["cb"])
+        planes_v = stem["imgs"][:nv].reshape(nv * 6, SRC, SRC)
+        scale_v, bias_v = stem["scale"][:nv].reshape(-1), stem["bias"][:nv].reshape(-1)
+        views = crop_normalize(planes_v, scale_v, bias_v, size).reshape(nv, 6, size, size)
+
+        @torch.inference_mode()
+        def unfused():
+            v = crop_normalize(planes_v, scale_v, bias_v, size).reshape(nv, 6, size, size)
+            return F.max_pool2d(F.relu(conv(v)), 3, 2, 1)
+
+        unfused_ms = cuda_ms(unfused, 20)
+        lib = {}
+        with torch.inference_mode():
+            for layout in ("NCHW", "channels-last"):
+                fmt = torch.channels_last if layout == "channels-last" else torch.contiguous_format
+                conv_l = conv.to(memory_format=fmt)
+                views_l = views.contiguous(memory_format=fmt)
+                lib[layout] = cuda_ms(lambda: conv_l(views_l), 20)
+        lib_layout = min(lib, key=lib.get)
+        moved, ops = k5_work(nv, size)
+        bnd = max(moved / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
+        k5_times[label] = (ms, plain_ms, bnd, dev_ms, lib[lib_layout])
+        print(f"K5 {label} [{nv},6,{SRC}^2] -> {size}^2 -> [{nv},64,{stem_out_size(size)}^2] bf16: "
+              f"{ms:.4f} ms by events, {dev_ms:.4f} ms device time; bound {bnd:.4f} ms by "
+              f"operations ({ops / 1e9:.1f} GFLOP at bf16 tensor-core rate; bytes "
+              f"{moved / 1e6:.1f} MB = {moved / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+              f"{100 * bnd / ms:.2f}% of it ({100 * bnd / dev_ms:.2f}% by device time), "
+              f"{ops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.4f} ms; cuDNN bf16 conv 7x7/2 with "
+              f"bias alone {lib['NCHW']:.4f} ms NCHW, {lib['channels-last']:.4f} ms channels-last "
+              f"(library_ms: {lib_layout}); unfused stem (K1 + cuDNN bf16 conv + ReLU + max pool) "
+              f"{unfused_ms:.4f} ms")
+        del conv, planes_v, views
+    return k5_times
+
+
+def shear_main_timings(dev, images, draws, sc, bi):
+    """Phase 7's K2-K4 on the main path's own shifts (the draws' residual
+    angles and crops through the fused pipeline's geometry), by events and
+    device time, beside their bounds and plain versions. Returns
+    ({name: (ms, plain, bound, device)}, the k of each pass)."""
+    import torch
+    from rxtpu_torch.ops import shear as ps
+    from rxtpu_torch.ops.shear import decompose_angle, fused_pass_shifts
+
+    _, phi = decompose_angle(draws[0].to(dev))
+    (t1, p1), (t2, p2), (t3, p3) = fused_pass_shifts(
+        (P, SRC, SRC), phi.repeat_interleave(6), draws[3].to(dev).repeat_interleave(6, 0), CROP)
+    x_main = images.reshape(P, SRC, SRC)
+    s1m = ps.shear_pass(x_main, t1, SRC, *p1)
+    s2m = ps.shear_pass_rows(s1m, t2, CROP, *p2)
+    rrev = torch.arange(P, device=dev) % 2 == 0
+    crev = torch.arange(P, device=dev) % 4 < 2
+    kf = {"shear_pass": ps.shift_params(t1, SRC, SRC, *p1),
+          "shear_pass_rows": ps.shift_params(t2, SRC, CROP, *p2),
+          "shear_pass_finish": ps.shift_params(t3, SRC, CROP, *p3)}
+    ones, zeros = torch.ones_like(sc), torch.zeros_like(bi)
+    calls = {
+        "shear_pass": (lambda: ps.shear_pass(x_main, t1, SRC, *p1),
+                       lambda: ps.shear_pass_reference(x_main, *kf["shear_pass"], SRC, *p1,
+                                                       ones, zeros)),
+        "shear_pass_rows": (lambda: ps.shear_pass_rows(s1m, t2, CROP, *p2),
+                            lambda: ps.shear_pass_rows_reference(
+                                s1m, *kf["shear_pass_rows"], CROP, *p2)),
+        "shear_pass_finish": (lambda: ps.shear_pass_finish(s2m, t3, CROP, *p3, sc, bi, rrev,
+                                                           crev, torch.bfloat16),
+                              lambda: ps.shear_pass_finish_reference(
+                                  s2m, *kf["shear_pass_finish"], CROP, *p3, sc, bi, rrev,
+                                  crev, torch.bfloat16)),
+    }
+    bounds = shear_bounds(kf, (p1, p2, p3), P, SRC, SRC, CROP)
+    shear_times = {}
+    for name, (kernel_fn, plain_fn) in calls.items():
+        ms = cuda_ms(kernel_fn, 50)
+        dev_ms = device_ms(kernel_fn, 50)
+        plain_ms = cuda_ms(plain_fn, 10)
+        moved, ops = bounds[name]
+        bnd = bound_ms(moved, ops)
+        shear_times[name] = (ms, plain_ms, bnd, dev_ms)
+        print(f"{name:18s} {ms:.4f} ms by events, {dev_ms:.4f} ms device time (bound "
+              f"{bnd:.4f} ms: {moved / 1e6:.1f} MB, {100 * bnd / ms:.1f}% of it, "
+              f"{100 * bnd / dev_ms:.1f}% by device time), plain {plain_ms:.4f} ms")
+    return shear_times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -709,7 +1003,7 @@ def main() -> int:
         from rxtpu_torch.ops import _build
         from rxtpu_torch.ops import shear as ps
         from rxtpu_torch.ops.crop_norm import (
-            crop_normalize, crop_normalize_reference, eval_batch_normalize,
+            crop_normalize, crop_normalize_reference, eval_batch_normalize, normalize_params,
         )
     except ImportError as e:
         print(f"chip_smoke: the rxtpu_torch package is not beside this script ({e})",
@@ -781,59 +1075,7 @@ def main() -> int:
     print(f"int8 .5-tie inputs checked at 512: {int((planes[half] % 2 == 1).sum())}")
     del planes
 
-    phase("2 K2-K4 shear passes against their plain versions (bit equality)")
-    sgen = torch.Generator(device=dev).manual_seed(1)
-    x8 = torch.randint(0, 256, (P, SRC, SRC), dtype=torch.uint8, device=dev, generator=sgen)
-    sc = torch.rand(P, device=dev, generator=sgen) * 0.05 + 0.01
-    bi = -torch.rand(P, device=dev, generator=sgen) * 3.0
-    shear_err = dict.fromkeys(shear_names, 0.0)
-    timing_inputs = {}
-
-    def check(name, out, ref, label):
-        torch.cuda.synchronize()
-        bad, err = bitwise_diff(out, ref)
-        shear_err[name] = max(shear_err[name], err)
-        print(f"{name:18s} {label:42s} mismatches {bad} max_abs_diff {err}")
-        if bad:
-            fail(f"{name} differs from its plain version ({label})")
-
-    def shifts(rows, lo, hi):
-        # past both ends: k reaches 0 and kmax (the clamps)
-        return torch.rand(P, rows, device=dev, generator=sgen) * (lo + hi + 16) - lo - 8
-
-    for crop in (CROP, CROP - 1):
-        pl, pr = ps._pads(0.41422 * SRC / 2, 0, SRC, SRC)
-        t1 = shifts(SRC, pl, pr)
-        k, f = ps.shift_params(t1, SRC, SRC, pl, pr)
-        clamps = (int((k == 0).sum()), int((k == SRC + pl + pr - SRC - 1).sum()))
-        for xin in (x8, x8.float()):
-            s1 = ps.shear_pass(xin, t1, SRC, pl, pr)
-            check("shear_pass", s1, ps.shear_pass_reference(xin, k, f, SRC, pl, pr,
-                                                            torch.ones_like(sc),
-                                                            torch.zeros_like(bi)),
-                  f"{str(xin.dtype)} pads {pl}/{pr} clamps {clamps}")
-        pt, pb = ps._pads(0.70712 * SRC / 2, SRC - crop, SRC, crop, lane_align=False)
-        t2 = shifts(SRC, pt, pb + SRC - crop)
-        k, f = ps.shift_params(t2, SRC, crop, pt, pb)
-        s2 = ps.shear_pass_rows(s1, t2, crop, pt, pb)
-        check("shear_pass_rows", s2, ps.shear_pass_rows_reference(s1, k, f, crop, pt, pb),
-              f"crop {crop} pads {pt}/{pb}")
-        pl3, pr3 = ps._pads(0.41422 * SRC / 2, SRC - crop, SRC, crop)
-        t3 = shifts(crop, pl3, pr3 + SRC - crop)
-        k, f = ps.shift_params(t3, SRC, crop, pl3, pr3)
-        for rr in (False, True):
-            for cr in (False, True):
-                rrev = torch.full((P,), rr, device=dev)
-                crev = torch.full((P,), cr, device=dev)
-                for dt in (torch.bfloat16, torch.float32):
-                    out = ps.shear_pass_finish(s2, t3, crop, pl3, pr3, sc, bi, rrev, crev, dt)
-                    ref = ps.shear_pass_finish_reference(s2, k, f, crop, pl3, pr3, sc, bi,
-                                                         rrev, crev, dt)
-                    check("shear_pass_finish", out, ref,
-                          f"crop {crop} rrev {rr:d} crev {cr:d} {str(dt)}")
-        if crop == CROP:
-            timing_inputs = dict(t1=t1, pads1=(pl, pr), s1=s1, t2=t2, pads2=(pt, pb), s2=s2,
-                                 t3=t3, pads3=(pl3, pr3))
+    shear_err, timing_inputs, sc, bi = shear_phase2(dev)
 
     from rxtpu_torch.ops.shear import apply_affine_shear
     from rxtpu_torch.ops.warp import sample_affine_params
@@ -870,58 +1112,8 @@ def main() -> int:
         fail("the composed shear augment differs from the composed plain path")
     del plain
 
-    phase("2 K5 fused_stem against its plain version (bf16 within one ulp, f32 within "
-          f"{STEM_F32_REL:g} of max|out|)")
-    from rxtpu_torch.ops.fused_stem import fused_stem, fused_stem_reference, stem_out_size
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"plain version's f32 conv: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
-          f"cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
-    fgen = torch.Generator(device=dev).manual_seed(5)
-    stem_imgs = torch.randint(0, 256, (96, 6, SRC, SRC), dtype=torch.uint8, device=dev,
-                              generator=fgen)
-    stem_std = torch.rand(96, 6, device=dev, generator=fgen) * 0.25 + 0.05
-    stem_mean = torch.rand(96, 6, device=dev, generator=fgen) * 0.5 + 0.1
-    stem_scale = (1.0 / (255.0 * stem_std)).float()
-    stem_bias = (-stem_mean / stem_std).float()
-    stem_w = torch.randn(64, 6, 7, 7, device=dev, generator=fgen) * math.sqrt(2.0 / (64 * 49))
-    stem_cb = torch.randn(64, device=dev, generator=fgen) * 0.5
-    stem_cases = {"val": (48, CROP), "test": (96, None), "odd crop": (48, CROP - 1)}
-
-    def stem_args(label):
-        nv, crop = stem_cases[label]
-        return (stem_imgs[:nv], stem_scale[:nv], stem_bias[:nv], stem_w, stem_cb, crop)
-
-    k5_err = 0.0
-    for label in stem_cases:
-        for dt in (torch.bfloat16, torch.float32):
-            out = fused_stem(*stem_args(label), dt)
-            ref = fused_stem_reference(*stem_args(label), dt)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or out.dtype != ref.dtype or not bool(
-                    torch.isfinite(out).all()):
-                fail(f"K5 gave {out.dtype} {tuple(out.shape)} against {ref.dtype} "
-                     f"{tuple(ref.shape)}, or non-finite values")
-            top = float(ref.float().abs().max())
-            if dt == torch.bfloat16:
-                share, over, err = bf16_gap(out, ref)
-                k5_err = max(k5_err, err)
-                print(f"K5 {label:8s} {tuple(out.shape)} bf16: {100 * share:.4f}% of elements "
-                      f"differ, {over} by more than one ulp, max_abs_diff {err} (max|out| {top})")
-                if over:
-                    fail(f"K5 differs from its plain version by more than one bf16 ulp ({label})")
-            else:
-                err = float((out - ref).abs().max())
-                k5_err = max(k5_err, err)
-                print(f"K5 {label:8s} {tuple(out.shape)} f32: max_abs_diff {err:.6g} = "
-                      f"{err / top:.3g} of max|out| {top:.6g} (bound {STEM_F32_REL:g})")
-                if err > STEM_F32_REL * top:
-                    fail(f"K5 f32 output differs from its plain version ({label})")
-            if top < 1.0 or float((ref == 0).float().mean()) > 0.5:
-                fail(f"K5 check on a degenerate output ({label})")
-    torch.backends.cudnn.allow_tf32 = True
-    del out, ref
+    k5_err, stem = k5_phase2(dev)
+    from rxtpu_torch.ops.fused_stem import fused_stem
 
     from rxtpu_torch.ops import fused_block as fb
 
@@ -1162,6 +1354,33 @@ def main() -> int:
         "std": torch.rand(B, 6, device=dev, generator=egen) * 0.2 + 0.05,
     }
     evals = {f: EvalStep(trained, CROP, torch.bfloat16, fused_stem=f) for f in (False, True)}
+    # K5 itself on the checkpoint's folded stem and these batches' views, TF32
+    # off for the plain version: bf16 within one ulp (the kernel aims at bit
+    # equality), f32 within STEM_F32_REL of max|out|
+    from rxtpu_torch.infer.fold import fold_state_dict
+    from rxtpu_torch.ops.fused_stem import fused_stem_reference
+
+    folded = fold_state_dict(trained.state_dict())
+    stem_wt = folded["backbone.conv_init.weight"].to(torch.bfloat16)
+    stem_cbt = folded["backbone.conv_init.bias"]
+    torch.backends.cudnn.allow_tf32 = False
+    for label, batch_, crop, g in (("val", val_batch, CROP, G), ("test", test_batch, None, 6)):
+        nv = B * g
+        sc_, bi_ = (t.reshape(nv, 6) for t in normalize_params(batch_["mean"], batch_["std"], g))
+        args = (batch_["images"].reshape(nv, 6, SRC, SRC), sc_, bi_, stem_wt, stem_cbt, crop)
+        out, ref = fused_stem(*args, torch.bfloat16), fused_stem_reference(*args, torch.bfloat16)
+        share, over, err = bf16_gap(out, ref)
+        out32 = fused_stem(*args, torch.float32)
+        ref32 = fused_stem_reference(*args, torch.float32)
+        gap32, top32 = float((out32 - ref32).abs().max()), float(ref32.abs().max())
+        near, rel = k5_f32_gaps(out32, ref32)
+        print(f"K5 on the trained stem, {label} batch: bf16 {100 * share:.4f}% of elements differ, "
+              f"{over} by more than one ulp; f32 max_abs_diff {gap32:.3g} of max|out| {top32:.4g}; "
+              f"gap {near:.3g} below 2^-8, {rel:.3g} of the exact path's bound")
+        if over or gap32 > STEM_F32_REL * top32:
+            fail(f"K5 on the trained stem differs from its plain version ({label})")
+    torch.backends.cudnn.allow_tf32 = True
+    del out, ref, out32, ref32
     preds = {f: Predictor(trained, None, dtype=torch.bfloat16, fused_stem=f)
              for f in (False, True)}
 
@@ -1465,45 +1684,7 @@ def main() -> int:
     phase("7 timings")
     import torch.nn.functional as F
 
-    # the kernels on the main path's own shifts: the draws' residual angles
-    # and crops of phase 2's batch, through the fused pipeline's geometry
-    from rxtpu_torch.ops.shear import decompose_angle, fused_pass_shifts
-
-    _, phi = decompose_angle(draws[0].to(dev))
-    (t1, p1), (t2, p2), (t3, p3) = fused_pass_shifts(
-        (P, SRC, SRC), phi.repeat_interleave(6), draws[3].to(dev).repeat_interleave(6, 0), CROP)
-    x_main = images.reshape(P, SRC, SRC)
-    s1m = ps.shear_pass(x_main, t1, SRC, *p1)
-    s2m = ps.shear_pass_rows(s1m, t2, CROP, *p2)
-    rrev = torch.arange(P, device=dev) % 2 == 0
-    crev = torch.arange(P, device=dev) % 4 < 2
-    kf = {"shear_pass": ps.shift_params(t1, SRC, SRC, *p1),
-          "shear_pass_rows": ps.shift_params(t2, SRC, CROP, *p2),
-          "shear_pass_finish": ps.shift_params(t3, SRC, CROP, *p3)}
-    ones, zeros = torch.ones_like(sc), torch.zeros_like(bi)
-    calls = {
-        "shear_pass": (lambda: ps.shear_pass(x_main, t1, SRC, *p1),
-                       lambda: ps.shear_pass_reference(x_main, *kf["shear_pass"], SRC, *p1,
-                                                       ones, zeros)),
-        "shear_pass_rows": (lambda: ps.shear_pass_rows(s1m, t2, CROP, *p2),
-                            lambda: ps.shear_pass_rows_reference(
-                                s1m, *kf["shear_pass_rows"], CROP, *p2)),
-        "shear_pass_finish": (lambda: ps.shear_pass_finish(s2m, t3, CROP, *p3, sc, bi, rrev,
-                                                           crev, torch.bfloat16),
-                              lambda: ps.shear_pass_finish_reference(
-                                  s2m, *kf["shear_pass_finish"], CROP, *p3, sc, bi, rrev,
-                                  crev, torch.bfloat16)),
-    }
-    bounds = shear_bounds(kf, (p1, p2, p3), P, SRC, SRC, CROP)
-    shear_times = {}
-    for name, (kernel_fn, plain_fn) in calls.items():
-        ms = cuda_ms(kernel_fn, 50)
-        plain_ms = cuda_ms(plain_fn, 10)
-        moved, ops = bounds[name]
-        bnd = bound_ms(moved, ops)
-        shear_times[name] = (ms, plain_ms, bnd)
-        print(f"{name:18s} {ms:.4f} ms (bound {bnd:.4f} ms: {moved / 1e6:.1f} MB, "
-              f"{100 * bnd / ms:.1f}% of it), plain {plain_ms:.4f} ms")
+    shear_times = shear_main_timings(dev, images, draws, sc, bi)
     ti = timing_inputs  # phase 2's random per-column shifts: K3's direct-read path
     rand_ms = cuda_ms(lambda: ps.shear_pass_rows(ti["s1"], ti["t2"], CROP, *ti["pads2"]), 20)
     print(f"shear_pass_rows on random per-column shifts (rows read directly): {rand_ms:.4f} ms")
@@ -1604,7 +1785,7 @@ def main() -> int:
                              "bn_backward_kernel")))
     print(f"K6/K7 kernels' share of the fused step's device time: "
           f"{100 * fb_us / fdevice_us:.1f}% ({fb_us / 1e3 / 3:.3f} ms/step)")
-    del state, train_model, fstate, fused_model, fixed, x8, ti, timing_inputs, kf, calls, s1m, s2m
+    del state, train_model, fstate, fused_model, fixed, ti, timing_inputs
 
     # K6/K7: each body at the 13 blocks' shapes of a train step (5 distinct),
     # next to its bound, its plain version and torch.matmul of its largest
@@ -1720,41 +1901,7 @@ def main() -> int:
     device_profile(lambda: pstep(batch), 3, "predict steps", ev_ms)
     del pstep
 
-    # K5 next to its bounds, its plain version (TF32 off) and the unfused stem
-    # as the folded predictor runs it: K1, the bf16 conv with bias, ReLU, pool
-    k5_times = {}
-    for label in ("val", "test"):
-        nv, crop = stem_cases[label]
-        size = crop or SRC
-        args = stem_args(label)
-        ms = cuda_ms(lambda: fused_stem(*args, torch.bfloat16), 20)
-        torch.backends.cudnn.allow_tf32 = False
-        plain_ms = cuda_ms(lambda: fused_stem_reference(*args, torch.bfloat16), 5)
-        torch.backends.cudnn.allow_tf32 = True
-        conv = torch.nn.Conv2d(6, 64, 7, 2, 3).to(dev, torch.bfloat16)
-        with torch.no_grad():
-            conv.weight.copy_(stem_w)
-            conv.bias.copy_(stem_cb)
-        planes_v = stem_imgs[:nv].reshape(nv * 6, SRC, SRC)
-        scale_v, bias_v = stem_scale[:nv].reshape(-1), stem_bias[:nv].reshape(-1)
-
-        @torch.inference_mode()
-        def unfused():
-            views = crop_normalize(planes_v, scale_v, bias_v, size).reshape(nv, 6, size, size)
-            return F.max_pool2d(F.relu(conv(views)), 3, 2, 1)
-
-        unfused_ms = cuda_ms(unfused, 20)
-        moved, ops = k5_work(nv, size)
-        bnd = max(moved / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3
-        k5_times[label] = (ms, plain_ms, bnd)
-        print(f"K5 {label} [{nv},6,{SRC}^2] -> {size}^2 -> [{nv},64,{stem_out_size(size)}^2] bf16: "
-              f"{ms:.4f} ms; bound {bnd:.4f} ms by operations ({ops / 1e9:.1f} GFLOP at bf16 "
-              f"tensor-core rate; bytes {moved / 1e6:.1f} MB = "
-              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms), {100 * bnd / ms:.2f}% of it; the same "
-              f"operations at the f32 CUDA-core rate {ops / F32_FLOPS * 1e3:.4f} ms "
-              f"({100 * ops / F32_FLOPS * 1e3 / ms:.1f}% of it); plain {plain_ms:.4f} ms; "
-              f"unfused stem (K1 + cuDNN bf16 conv + ReLU + max pool) {unfused_ms:.4f} ms")
-    del conv, planes_v
+    k5_times = k5_timings(dev, stem)
 
     # the eval and predict steps, fused and unfused, on the trained checkpoint
     for name, steps, batch_, views in (("eval", evals, val_batch, B * G),
@@ -1792,19 +1939,19 @@ def main() -> int:
     replaces = {"shear_pass": "rxtpu/ops/shear.py:47", "shear_pass_rows": "rxtpu/ops/shear.py:154",
                 "shear_pass_finish": "rxtpu/ops/shear.py:229"}
     for name in shear_names:
-        ms, plain_ms, bnd = shear_times[name]
+        ms, plain_ms, bnd, _ = shear_times[name]
         entries.append({
             "name": name, "route": "cuda", "source": "rxtpu_torch/csrc/shear.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": shear_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": "bytes", "library_ms": None,
         })
-    ms, plain_ms, bnd = k5_times["test"]
+    ms, plain_ms, bnd, _, lib_ms = k5_times["test"]
     entries.append({
         "name": "fused_stem", "route": "cuda", "source": "rxtpu_torch/csrc/fused_stem.cu",
         "replaces": "rxtpu/ops/fused_stem.py:65", "launches": k5_launches,
         "max_abs_err": k5_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-        "bound_by": "operations", "library_ms": None,
+        "bound_by": "operations", "library_ms": lib_ms,
     })
     for name in FB_NAMES:
         ms, plain_ms, bnd, t_bytes, t_ops, mm_ms = fb_times[name]

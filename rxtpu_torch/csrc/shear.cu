@@ -26,13 +26,21 @@
 // about 113, 155 and 87 us at 3.35 TB/s.
 //
 // Design:
-// - K2, K4: a block per (plane, tile of kRows rows). For each row the block
+// - K2: a block per (plane, tile of kRows rows). For each row the block
 //   stages the w_out + 1 source values it needs in shared memory, folding
 //   the reflect-101 border as it loads (consecutive threads read consecutive
 //   source addresses), then each thread writes kVec neighbouring outputs with
 //   one vector store (a masked tail when w_out is not a multiple of kVec).
-//   K4's row reversal picks the destination row, its column reversal the
-//   staged index each output reads.
+// - K4: a warp per output row, kRowWarpsX rows per block, and no block
+//   barrier (K2's staged design held K4 to 40% of its bound: two barriers
+//   per row, a few loads in flight per thread between them, 91 of 128
+//   threads busy). After the fold one row's reads are one run of w_out + 1
+//   floats: each lane reads the kVec + 1 it needs for kVec neighbouring
+//   outputs straight from global memory (L1 serves the overlap), for all its
+//   kUnroll chunks of the row before any arithmetic, so kUnroll * (kVec + 1)
+//   loads are in flight per lane; then one vector store per chunk. Row
+//   reversal picks the destination row, column reversal mirrors the chunk
+//   and the order of its outputs.
 // - K3: a block per (plane, 32 columns, 64 output rows). Each column reads
 //   its own run of source rows, offset by its k, so a warp reading one output
 //   row directly touches up to 32 different rows. Instead the block stages
@@ -53,9 +61,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // K2, K4
-constexpr int kRows = 4;          // K2, K4: rows of one plane per block
+constexpr int kThreads = 128;     // K2
+constexpr int kRows = 4;          // K2: rows of one plane per block
 constexpr int kVec = 4;           // K2, K4: outputs per thread and store
+constexpr int kRowWarpsX = 8;     // K4: warps (output rows) per block
+constexpr int kUnroll = 3;        // K4: chunks of kVec outputs per lane per pass
 constexpr int kColTile = 32;      // K3: columns per block, one per lane
 constexpr int kRowWarps = 8;      // K3: warps per block
 constexpr int kRowTile = 64;      // K3: output rows per block
@@ -87,20 +97,32 @@ __device__ __forceinline__ float lerp_rn(float x, float n, float f) {
   return __fadd_rn(__fmul_rn(x, __fsub_rn(1.0f, f)), __fmul_rn(n, f));
 }
 
-// K2 and K4: per-row shift along W. rrev / crev are null for K2.
+// kVec outputs at dst_row[j0..]: one vector store, or element by element up
+// to w_out when w_out is not a multiple of kVec (rows not aligned)
+template <typename OutT, bool kVecStore>
+__device__ __forceinline__ void store(OutT* dst_row, int j0, int w_out, const Pack<OutT>& pk) {
+  if (kVecStore) {
+    using V = typename VecType<sizeof(OutT) * kVec>::T;
+    *reinterpret_cast<V*>(dst_row + j0) = *reinterpret_cast<const V*>(&pk);
+  } else {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (j0 + v < w_out) dst_row[j0 + v] = pk.v[v];
+    }
+  }
+}
+
+// K2: per-row shift along W.
 template <typename InT, typename OutT, bool kVecStore>
 __global__ void __launch_bounds__(kThreads)
 shear_x_kernel(const InT* __restrict__ in, const int32_t* __restrict__ kk,
                const float* __restrict__ ff, const float* __restrict__ scale,
-               const float* __restrict__ bias, const uint8_t* __restrict__ rrev,
-               const uint8_t* __restrict__ crev, OutT* __restrict__ out, int h,
-               int w, int w_out, int pad_left) {
+               const float* __restrict__ bias, OutT* __restrict__ out, int h, int w,
+               int w_out, int pad_left) {
   extern __shared__ float row[];  // w_out + 1 staged source values
   const int p = blockIdx.x;
   const float s = scale[p];
   const float b = bias[p];
-  const bool rev_rows = rrev != nullptr && rrev[p] != 0;
-  const bool rev_cols = crev != nullptr && crev[p] != 0;
   const InT* src = in + static_cast<int64_t>(p) * h * w;
   OutT* dst = out + static_cast<int64_t>(p) * h * w_out;
   const int r0 = static_cast<int>(blockIdx.y) * kRows;
@@ -114,28 +136,76 @@ shear_x_kernel(const InT* __restrict__ in, const int32_t* __restrict__ kk,
       row[t] = static_cast<float>(src_row[reflect101(k + t - pad_left, w)]);
     }
     __syncthreads();
-    OutT* dst_row = dst + static_cast<int64_t>(rev_rows ? h - 1 - r : r) * w_out;
+    OutT* dst_row = dst + static_cast<int64_t>(r) * w_out;
     for (int j0 = static_cast<int>(threadIdx.x) * kVec; j0 < w_out;
          j0 += kThreads * kVec) {
       Pack<OutT> pk;
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
-        const int jo = min(j0 + v, w_out - 1);  // clamped; the tail store masks
-        const int j = rev_cols ? w_out - 1 - jo : jo;
+        const int j = min(j0 + v, w_out - 1);  // clamped; the tail store masks
         const float y = lerp_rn(row[j], row[j + 1], f);
         pk.v[v] = convert<OutT>(__fadd_rn(__fmul_rn(y, s), b));
       }
-      if (kVecStore) {
-        using V = typename VecType<sizeof(OutT) * kVec>::T;
-        *reinterpret_cast<V*>(dst_row + j0) = *reinterpret_cast<const V*>(&pk);
-      } else {
-#pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          if (j0 + v < w_out) dst_row[j0 + v] = pk.v[v];
-        }
-      }
+      store<OutT, kVecStore>(dst_row, j0, w_out, pk);
     }
     __syncthreads();  // the next row overwrites the staged values
+  }
+}
+
+// K4: per-row shift along W of f32 rows, normalize, row / column reversal.
+// Warp `warp` of block `blockIdx.x` writes the output of source row
+// kRowWarpsX * blockIdx.x + warp of the p * h rows (plane-major).
+template <typename OutT, bool kVecStore>
+__global__ void __launch_bounds__(32 * kRowWarpsX)
+shear_finish_kernel(const float* __restrict__ in, const int32_t* __restrict__ kk,
+                    const float* __restrict__ ff, const float* __restrict__ scale,
+                    const float* __restrict__ bias, const uint8_t* __restrict__ rrev,
+                    const uint8_t* __restrict__ crev, OutT* __restrict__ out, int p_count,
+                    int h, int w, int w_out, int pad_left) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  const int64_t line = static_cast<int64_t>(blockIdx.x) * kRowWarpsX + threadIdx.x / 32;
+  if (line >= static_cast<int64_t>(p_count) * h) return;
+  const int p = static_cast<int>(line / h), r = static_cast<int>(line % h);
+  const int k = kk[line];
+  const float f = ff[line];
+  const float s = scale[p];
+  const float b = bias[p];
+  const bool rev_cols = crev[p] != 0;
+  const float* src_row = in + line * w;
+  OutT* dst_row = out + (static_cast<int64_t>(p) * h + (rrev[p] != 0 ? h - 1 - r : r)) * w_out;
+  const int chunks = (w_out + kVec - 1) / kVec;
+  for (int c0 = lane; c0 < chunks; c0 += 32 * kUnroll) {
+    // every load of the pass first: chunk j0's window is padded indices
+    // lo .. lo + kVec, clamped into the row's w_out + 1 (a clamped index
+    // feeds only outputs past w_out, which the store masks)
+    float x[kUnroll][kVec + 1];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j0 = (c0 + 32 * u) * kVec;
+      const int lo = rev_cols ? w_out - kVec - j0 : j0;
+#pragma unroll
+      for (int v = 0; v <= kVec; ++v) {
+        const int t = min(max(lo + v, 0), w_out);
+        x[u][v] = __ldg(src_row + reflect101(k + t - pad_left, w));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j0 = (c0 + 32 * u) * kVec;
+      if (j0 < w_out) {
+        Pack<OutT> pk;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          // reversed, output j0 + v reads padded w_out - 1 - (j0 + v) = lo + kVec - 1 - v
+          // (both indices constant, so x stays in registers)
+          const float x0 = rev_cols ? x[u][kVec - 1 - v] : x[u][v];
+          const float x1 = rev_cols ? x[u][kVec - v] : x[u][v + 1];
+          const float y = lerp_rn(x0, x1, f);
+          pk.v[v] = convert<OutT>(__fadd_rn(__fmul_rn(y, s), b));
+        }
+        store<OutT, kVecStore>(dst_row, j0, w_out, pk);
+      }
+    }
   }
 }
 
@@ -197,48 +267,35 @@ shear_y_kernel(const float* __restrict__ in, const int32_t* __restrict__ kk,
 
 template <typename InT, typename OutT>
 void launch_x(const void* in, const int32_t* k, const float* f, const float* scale,
-              const float* bias, const uint8_t* rrev, const uint8_t* crev, void* out,
-              int p, int h, int w, int w_out, int pad_left, cudaStream_t stream) {
+              const float* bias, void* out, int p, int h, int w, int w_out, int pad_left,
+              cudaStream_t stream) {
   const dim3 grid(p, (h + kRows - 1) / kRows);
   const size_t smem = sizeof(float) * (w_out + 1);
   const InT* src = static_cast<const InT*>(in);
   OutT* dst = static_cast<OutT*>(out);
   if (w_out % kVec == 0) {
     shear_x_kernel<InT, OutT, true><<<grid, kThreads, smem, stream>>>(
-        src, k, f, scale, bias, rrev, crev, dst, h, w, w_out, pad_left);
+        src, k, f, scale, bias, dst, h, w, w_out, pad_left);
   } else {
     shear_x_kernel<InT, OutT, false><<<grid, kThreads, smem, stream>>>(
-        src, k, f, scale, bias, rrev, crev, dst, h, w, w_out, pad_left);
+        src, k, f, scale, bias, dst, h, w, w_out, pad_left);
   }
 }
 
-// in_kind: 0 = uint8, 2 = f32; out_kind: 0 = bf16, 2 = f32
-int dispatch_x(const void* in, int in_kind, const void* k, const void* f,
-               const void* scale, const void* bias, const void* rrev,
-               const void* crev, void* out, int out_kind, int p, int h, int w,
-               int w_out, int pad_left, void* stream) {
-  if (p == 0 || h == 0 || w_out == 0) return static_cast<int>(cudaSuccess);
-  // shared memory of one staged row: above 48 KB a launch needs an opt-in
-  if (sizeof(float) * (w_out + 1) > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int32_t* kp = static_cast<const int32_t*>(k);
-  const float* fp = static_cast<const float*>(f);
-  const float* sp = static_cast<const float*>(scale);
-  const float* bp = static_cast<const float*>(bias);
-  const uint8_t* rp = static_cast<const uint8_t*>(rrev);
-  const uint8_t* cp = static_cast<const uint8_t*>(crev);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_kind == 0 && out_kind == 2) {
-    launch_x<uint8_t, float>(in, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
-  } else if (in_kind == 0 && out_kind == 0) {
-    launch_x<uint8_t, __nv_bfloat16>(in, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
-  } else if (in_kind == 2 && out_kind == 2) {
-    launch_x<float, float>(in, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
-  } else if (in_kind == 2 && out_kind == 0) {
-    launch_x<float, __nv_bfloat16>(in, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
+template <typename OutT>
+void launch_finish(const float* in, const int32_t* k, const float* f, const float* scale,
+                   const float* bias, const uint8_t* rrev, const uint8_t* crev, void* out,
+                   int p, int h, int w, int w_out, int pad_left, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(p) * h;
+  const dim3 grid(static_cast<unsigned>((rows + kRowWarpsX - 1) / kRowWarpsX));
+  OutT* dst = static_cast<OutT*>(out);
+  if (w_out % kVec == 0) {
+    shear_finish_kernel<OutT, true><<<grid, 32 * kRowWarpsX, 0, stream>>>(
+        in, k, f, scale, bias, rrev, crev, dst, p, h, w, w_out, pad_left);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    shear_finish_kernel<OutT, false><<<grid, 32 * kRowWarpsX, 0, stream>>>(
+        in, k, f, scale, bias, rrev, crev, dst, p, h, w, w_out, pad_left);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -247,13 +304,31 @@ int dispatch_x(const void* in, int in_kind, const void* k, const void* f,
 // cudaSuccess); an unknown type code returns cudaErrorInvalidValue.
 
 // K2: x [p, h, w] (uint8 or f32) -> out [p, h, w_out]; k, f [p, h]; scale,
-// bias [p].
+// bias [p]. in_kind: 0 = uint8, 2 = f32; out_kind: 0 = bf16, 2 = f32.
 extern "C" int rxtpu_shear_pass(const void* in, int in_kind, const void* k,
                                 const void* f, const void* scale, const void* bias,
                                 void* out, int out_kind, int p, int h, int w,
                                 int w_out, int pad_left, void* stream) {
-  return dispatch_x(in, in_kind, k, f, scale, bias, nullptr, nullptr, out, out_kind,
-                    p, h, w, w_out, pad_left, stream);
+  if (p == 0 || h == 0 || w_out == 0) return static_cast<int>(cudaSuccess);
+  // shared memory of one staged row: above 48 KB a launch needs an opt-in
+  if (sizeof(float) * (w_out + 1) > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int32_t* kp = static_cast<const int32_t*>(k);
+  const float* fp = static_cast<const float*>(f);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bp = static_cast<const float*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_kind == 0 && out_kind == 2) {
+    launch_x<uint8_t, float>(in, kp, fp, sp, bp, out, p, h, w, w_out, pad_left, st);
+  } else if (in_kind == 0 && out_kind == 0) {
+    launch_x<uint8_t, __nv_bfloat16>(in, kp, fp, sp, bp, out, p, h, w, w_out, pad_left, st);
+  } else if (in_kind == 2 && out_kind == 2) {
+    launch_x<float, float>(in, kp, fp, sp, bp, out, p, h, w, w_out, pad_left, st);
+  } else if (in_kind == 2 && out_kind == 0) {
+    launch_x<float, __nv_bfloat16>(in, kp, fp, sp, bp, out, p, h, w, w_out, pad_left, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K4: as K2 on f32 input, then the output rows reversed where rrev[p] and its
@@ -263,8 +338,23 @@ extern "C" int rxtpu_shear_pass_finish(const void* in, const void* k, const void
                                        const void* rrev, const void* crev, void* out,
                                        int out_kind, int p, int h, int w, int w_out,
                                        int pad_left, void* stream) {
-  return dispatch_x(in, 2, k, f, scale, bias, rrev, crev, out, out_kind, p, h, w, w_out,
-                    pad_left, stream);
+  if (p == 0 || h == 0 || w_out == 0) return static_cast<int>(cudaSuccess);
+  const float* src = static_cast<const float*>(in);
+  const int32_t* kp = static_cast<const int32_t*>(k);
+  const float* fp = static_cast<const float*>(f);
+  const float* sp = static_cast<const float*>(scale);
+  const float* bp = static_cast<const float*>(bias);
+  const uint8_t* rp = static_cast<const uint8_t*>(rrev);
+  const uint8_t* cp = static_cast<const uint8_t*>(crev);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_kind == 2) {
+    launch_finish<float>(src, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
+  } else if (out_kind == 0) {
+    launch_finish<__nv_bfloat16>(src, kp, fp, sp, bp, rp, cp, out, p, h, w, w_out, pad_left, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3: x [p, h, w] f32 -> out [p, h_out, w]; k, f [p, w].

@@ -7,10 +7,14 @@ written as ``[N, M, Po, Po]`` NCHW in ``out_dtype``.
 
 ``fused_stem`` launches the hand-written CUDA kernel
 ``rxtpu_torch/csrc/fused_stem.cu`` (which replaces the Pallas kernel
-``fused_stem.py:_stem_kernel``) on a CUDA tensor, and uses the plain PyTorch
+``fused_stem.py:_stem_kernel``: an implicit GEMM on the tensor cores in
+persistent blocks) on a CUDA tensor, and uses the plain PyTorch
 version ``fused_stem_reference`` only for a tensor on the CPU. Both round
 the normalize's product and sum separately and then to bf16, so the conv
-operands are bit-equal and only the order of the f32 sums differs.
+operands are bit-equal and only the order of the f32 sums differs; the
+kernel sums again, in the plain version's order, the conv outputs whose bf16
+rounding that order could change, so its bf16 output equals the plain
+version's on the card.
 
 ``eval_batch_stem`` is the eval/test batch path, the counterpart of the
 stem half of rxtpu's ``_make_fused_stem_apply``: raw ``[B, G, C, H, W]`` and
@@ -118,8 +122,6 @@ def fused_stem(images: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if (c, m) != KERNEL_CHANNELS:
         raise ValueError(f"the fused_stem kernel takes {KERNEL_CHANNELS[0]} input and "
                          f"{KERNEL_CHANNELS[1]} output channels, got {c} and {m}")
-    if n > 65535:  # one grid row per view
-        raise ValueError(f"the fused_stem kernel takes at most 65535 views, got {n}")
     images, scale, bias = images.contiguous(), scale.contiguous(), bias.contiguous()
     w_bf16 = weight.to(torch.bfloat16).reshape(m, c * 49).contiguous()
     conv_bias = conv_bias.contiguous()
