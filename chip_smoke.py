@@ -6,7 +6,9 @@
 Phases, each ending the run with a non-zero exit when it fails:
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
-   ``rxtpu_torch/csrc`` (one nvcc per source, all at once);
+   ``rxtpu_torch/csrc`` (one nvcc per source, all at once; ``jpeg_nv.cu``,
+   the nvJPEG decoder, among them), and the host's JPEG libraries (libjpeg's
+   header and library, nvJPEG's version);
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1 (crop_norm) in bf16, int8 (with exact .5 ties) and f32 at the test
    shape and the 364 crop; K2-K4 (the shear passes) at the train shapes
@@ -53,6 +55,17 @@ Phases, each ending the run with a non-zero exit when it fails:
    validation batch (G=3, crop 364) and one test batch (G=6, 512), K5
    launched once per call and K1 not at all, and ``predict_dataset`` over
    phase 4's test pipeline with both (plate-leak assignments compared);
+4c. JPEG input at full width: nvJPEG's planes against rxtpu's libjpeg ones
+   (``tests/data/jpeg_ref``, within one level); (a) phase 3's fixture written
+   as a JPEG tree (6x512^2 planes per view, quality 95, nvJPEG's encoder) and
+   a raw pack of the planes nvJPEG decodes from it: the pipeline's batches
+   from the tree, preloaded and streaming, equal the pack's bit for bit in
+   train, val and test modes over two epochs; (b) ``rxtpu_torch.cli.main``
+   with rxtpu's default input (no ``--pack``) and the stats artifact absent:
+   the stats it computes within 1e-12 of ``compute_stats_numpy`` on the
+   decoded planes, 1 epoch of 4 steps with K2-K4 once per step, finite
+   losses, nvJPEG on the path, the submission; (c) the test phase on (b)'s
+   checkpoint from ``--pack`` of the decoded planes writes the same bytes;
 5. the card against the CPU: f32 predict logits on one full-width batch, and
    one f32 train step (loss, updated parameters and BN statistics, momentum
    buffers) against the same step in f64, with the CPU's f32 step beside it;
@@ -78,7 +91,11 @@ Phases, each ending the run with a non-zero exit when it fails:
    version and ``torch.matmul`` of its largest product, each launch of
    every body timed alone, each body's device time (the host enqueueing
    ahead of the card) and its host's time to enqueue it, and the blocks fused against the unfused
-   composition, forward and backward.
+   composition, forward and backward; the JPEG decode of one train batch
+   (288 planes) and one test batch (576) at 1, 4 and nproc threads, and the
+   train loop's ``perf/step_time_s`` and ``perf/input_stall_pct`` from the
+   JPEG tree and from the decoded pack (2 epochs of 4 steps each, 4 decode
+   threads).
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
 phase 2's K6/K7 checks and the timing of every body's launches, device
@@ -992,6 +1009,282 @@ def shear_main_timings(dev, images, draws, sc, bi):
     return shear_times
 
 
+# ---------------------------------------------------------------------------
+# JPEG input (phase 4c and its timings in phase 7): rxtpu's default run reads
+# a JPEG tree; on the card the port decodes it with nvJPEG (csrc/jpeg_nv.cu)
+# ---------------------------------------------------------------------------
+JPEG_REF_MAX_LEVELS = 1  # nvJPEG's planes against rxtpu's libjpeg ones (tests/data/jpeg_ref)
+STATS_REL = 1e-12        # the CLI's computed stats against compute_stats_numpy
+
+
+def jpeg_host_probe():
+    """Phase 1's probe of the host's JPEG libraries: libjpeg's header and
+    library (the CPU route) and nvJPEG's version (the card's route)."""
+    import ctypes.util
+
+    from rxtpu_torch.data.decode import nvjpeg_version
+
+    header = [p for p in ("/usr/include/jpeglib.h",) if os.path.exists(p)]
+    lib = ctypes.util.find_library("jpeg")
+    print(f"JPEG route on this host: libjpeg header {header or 'absent'}, library "
+          f"{lib or 'absent'}; nvJPEG {'.'.join(map(str, nvjpeg_version()))} from the CUDA "
+          f"toolkit (csrc/jpeg_nv.cu decodes on the card)")
+
+
+def jpeg_phase(dev, cli, train_dir, shear_kernels, crop_normalize, card):
+    """Phase 4c: (a) phase 3's fixture as a JPEG tree and a raw pack of the
+    planes nvJPEG decodes from it, the pipeline's batches from the tree
+    (preloaded and streaming) equal to the pack's in train, val and test
+    modes over two epochs; (b) the CLI on the tree with no --pack and no
+    stats artifact; (c) the test phase from the tree and from the pack of
+    its planes, the same submission bytes. Returns what phase 7 reuses."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch.data import decode as jd
+    from rxtpu_torch.data.pack import PackStore, write_raw_pack
+    from rxtpu_torch.data.pipeline import ByteStore, Pipeline
+    from rxtpu_torch.data.records import image_path, load_metadata, read_metadata_csvs
+    from rxtpu_torch.data.stats import compute_stats_numpy, load_stats
+    from rxtpu_torch.data.synthetic import write_jpeg_tree
+
+    ref_dir = os.path.join(ROOT, "tests", "data", "jpeg_ref")
+    ref_paths = sorted(os.path.join(ref_dir, n) for n in os.listdir(ref_dir)
+                       if n.endswith(".jpeg"))
+    ref = np.load(os.path.join(ref_dir, "planes.npz"))["planes"].astype(np.int64)
+    def host(x):  # decoded planes: a tensor on the card, numpy on the CPU
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    side = ref.shape[-1]
+    got = jd.decode_files(ref_paths, side, side, nthreads=4, strict=True, device=dev)
+    gap = np.abs(host(got).astype(np.int64) - ref)
+    print(f"nvJPEG against rxtpu's libjpeg planes (tests/data/jpeg_ref, {len(ref_paths)} JPEGs "
+          f"of {side}^2, quality 95): max |difference| {int(gap.max())} levels (limit "
+          f"{JPEG_REF_MAX_LEVELS}), {100 * float((gap > 0).mean()):.3f}% of pixels differ")
+    if gap.max() > JPEG_REF_MAX_LEVELS:
+        fail("nvJPEG's planes differ from rxtpu's by more than the limit")
+
+    jpeg_dir = os.path.join(WORK, "jpeg")
+    data = os.path.join(jpeg_dir, "data")
+    shutil.copytree(os.path.join(train_dir, "data", "metadata"), os.path.join(data, "metadata"))
+    t0 = time.perf_counter()
+    jd.encode_batch_jpeg.launches = 0
+    n_files = write_jpeg_tree(os.path.join(train_dir, "packs"), data, 95, dev)
+    sizes = [os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(data) for f in fs
+             if f.endswith(".jpeg")]
+    print(f"(a) JPEG tree of phase 3's fixture: {n_files} files of {SRC}^2 at quality 95 "
+          f"(nvJPEG, {jd.encode_batch_jpeg.launches} encode calls) in "
+          f"{time.perf_counter() - t0:.2f} s, mean {np.mean(sizes) / 1e3:.1f} KB per file")
+    dec = os.path.join(jpeg_dir, "packs_dec")
+    decoded = {}  # (experiment, channel) -> planes, for the stats check
+    for split in ("train", "test"):
+        with open(os.path.join(train_dir, "packs", f"{split}.rxpack.json")) as f:
+            entries = json.load(f)["entries"]  # "experiment|plate|well|site" -> ordinal
+        keys = [(e, int(p), w, int(s)) for (e, p, w, s) in
+                (k.split("|") for k, _ in sorted(entries.items(), key=lambda kv: kv[1]))]
+
+        def views():
+            for i in range(0, len(keys), 48):
+                chunk = keys[i:i + 48]
+                paths = [image_path(data, split, e, p, w, s, ch) for e, p, w, s in chunk
+                         for ch in range(1, 7)]
+                planes = jd.decode_files(paths, SRC, SRC, nthreads=4, strict=True, device=dev)
+                planes = host(planes).reshape(len(chunk), 6, SRC, SRC)
+                for key, view in zip(chunk, planes):
+                    for ch in range(6):
+                        decoded.setdefault((key[0], ch + 1), []).append(view[ch])
+                    yield key, view
+
+        write_raw_pack(dec, split, views())
+    stats = load_stats(os.path.join(train_dir, "stats_experiments.json"))
+    n_checked = 0
+    for split, modes in (("train", ("train", "val")), ("test", ("test",))):
+        rows, ctrl = read_metadata_csvs(os.path.join(data, "metadata"), split)
+        index = load_metadata(rows, ctrl, split)
+        pack = PackStore(os.path.join(dec, f"{split}.rxpack"))
+        for mode in modes:
+            kw = dict(seed=1, shuffle=mode == "train", drop_last=mode == "train")
+            want_pipe = Pipeline(index, pack, stats, B, mode, **kw)
+            for preload in (True, False):
+                pipe = Pipeline(index, ByteStore(index, data, preload=preload), stats, B, mode,
+                                src_size=SRC, decoder_threads=4, device=dev, **kw)
+                for epoch in (0, 1):
+                    got_b, want_b = list(pipe.epoch(epoch)), list(want_pipe.epoch(epoch))
+                    if len(got_b) != len(want_b) or not got_b:
+                        fail(f"{mode} pipeline from the tree gave {len(got_b)} batches, the "
+                             f"pack {len(want_b)}")
+                    for g_, w_ in zip(got_b, want_b):
+                        on_card = isinstance(g_["images"], torch.Tensor)
+                        if on_card != (dev.type == "cuda") or not np.array_equal(
+                                host(g_["images"]), w_["images"]):
+                            fail(f"{mode} batch from the tree (preload {preload}) differs "
+                                 "from the pack's")
+                        if g_["id_codes"] != w_["id_codes"] or any(
+                                not np.array_equal(g_[k], w_[k])
+                                for k in ("labels", "mean", "std", "valid")):
+                            fail(f"{mode} batch metadata from the tree differs from the pack's")
+                        n_checked += 1
+    print(f"(a) pipeline batches from the tree (preloaded and streaming, nvJPEG on the card) "
+          f"equal the decoded pack's bit for bit: {n_checked} batches of train, val and test "
+          f"modes over two epochs")
+
+    # (b) rxtpu's default run: no --pack, the stats artifact absent
+    run = os.path.join(jpeg_dir, "run")
+    os.makedirs(run)
+    stats_path = os.path.join(run, "stats_experiments.json")
+    argv = ["--experiment_id", "jpeg", "--data-dir", data, "--stats", stats_path,
+            "--out-dir", run, "--split-by-experiment", "--epochs", "1", "--no-plate-leak",
+            "--device", "cuda"]
+    resolve = cli.resolve_config
+
+    def log_every_step(args):
+        cfg = resolve(args)
+        cfg.train.log_every_steps = 1
+        return cfg
+
+    cwd = os.getcwd()
+    cli.resolve_config = log_every_step
+    os.chdir(run)
+    for kernel in shear_kernels:
+        kernel.launches = 0
+    crop_normalize.launches = 0
+    jd.decode_batch.launches = jd.decode_files.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        cli.resolve_config = resolve
+    n_steps = 64 // B
+    launches = [k.launches for k in shear_kernels]
+    print(f"(b) cli (no --pack, stats absent) rc {rc} in {time.perf_counter() - t0:.2f} s; "
+          f"K2-K4 launches {launches} for {n_steps} train steps; K1 {crop_normalize.launches}; "
+          f"nvJPEG decode_batch calls {jd.decode_batch.launches}, decode_files calls "
+          f"{jd.decode_files.launches} (the stats pass)")
+    if rc != 0:
+        fail(f"the JPEG cli run exited {rc}")
+    if launches != [n_steps] * 3 or crop_normalize.launches == 0:
+        fail("the JPEG run did not launch K2-K4 once per train step and K1 in eval")
+    if jd.decode_batch.launches == 0 or jd.decode_files.launches == 0:
+        fail("the JPEG run did not decode with nvJPEG")
+    written = load_stats(stats_path)
+    want = compute_stats_numpy((e, ch, p) for (e, ch), ps in decoded.items() for p in ps)
+    worst = max(float(np.max(np.abs(written[e][k] / want[e][k] - 1)))
+                for e in want for k in ("mean", "std"))
+    print(f"(b) stats written by the run ({len(written)} experiments) against "
+          f"compute_stats_numpy on the decoded planes: max relative difference {worst:.3g} "
+          f"(limit {STATS_REL})")
+    if sorted(written) != sorted(want) or not worst <= STATS_REL:
+        fail("the computed stats artifact differs from compute_stats_numpy")
+    logged = read_jsonl(os.path.join(run, "board", "jpeg", "metrics.jsonl"))
+    losses = [r["training/loss"] for r in logged if "training/loss" in r]
+    val_losses = [r["validation/loss"] for r in logged if "validation/loss" in r]
+    print(f"(b) train losses {[round(v, 4) for v in losses]}; val losses "
+          f"{[round(v, 4) for v in val_losses]}")
+    if len(losses) != n_steps or len(val_losses) != 2 or not all(
+            math.isfinite(v) for v in losses + val_losses):
+        fail("a logged loss of the JPEG run is missing or not finite")
+    with open(os.path.join(run, "submission_jpeg.csv"), "rb") as f:
+        sub_jpeg = f.read()
+    rows, _ = read_metadata_csvs(os.path.join(data, "metadata"), "test")
+    if [line.split(",")[0] for line in sub_jpeg.decode().splitlines()[1:]] != [
+            r["id_code"] for r in rows]:
+        fail("the JPEG run's submission rows do not match the test ids")
+
+    # (c) the test phase on (b)'s checkpoint from the pack of the decoded planes
+    out = os.path.join(run, "from_pack")
+    os.makedirs(out)
+    os.chdir(run)
+    try:
+        rc = cli.main([out if a == run else a for a in argv] + ["--pack", dec])
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(out, "submission_jpeg.csv"), "rb") as f:
+        same = f.read() == sub_jpeg
+    print(f"(c) test phase from --pack of the decoded planes: rc {rc}; submission "
+          f"{'byte-equal to' if same else 'DIFFERENT from'} the JPEG tree's "
+          f"({len(sub_jpeg.splitlines()) - 1} rows)")
+    if rc != 0 or not same:
+        fail("the test phase from the pack wrote another submission than from the tree")
+    return {"data": data, "dec": dec, "argv": argv}
+
+
+def jpeg_timings(dev, cli, jp, card):
+    """Phase 7's JPEG numbers, at two contents: the fixture's uniform random
+    planes (the worst case for the Huffman decode) and microscopy-like ones
+    (``tests/data/jpeg_ref``'s two cell images, copied into every path of a
+    second tree). One train batch (288 planes) and one test batch (576)
+    decoded from memory at 1, 4 and nproc threads; the train loop's step time
+    and input stall from each tree and from the decoded pack, at rxtpu's 4
+    threads, over the same steps."""
+    import torch
+
+    from rxtpu_torch.data import decode as jd
+
+    def tree_files(root):
+        return sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+                      if f.endswith(".jpeg"))
+
+    ref_dir = os.path.join(ROOT, "tests", "data", "jpeg_ref")
+    cells = []
+    for name in ("0.jpeg", "1.jpeg"):
+        with open(os.path.join(ref_dir, name), "rb") as f:
+            cells.append(f.read())
+    cells_data = os.path.join(WORK, "jpeg", "cells_data")
+    shutil.copytree(os.path.join(jp["data"], "metadata"), os.path.join(cells_data, "metadata"))
+    for i, p in enumerate(tree_files(jp["data"])):
+        out = os.path.join(cells_data, os.path.relpath(p, jp["data"]))
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "wb") as f:
+            f.write(cells[i % 2])
+    contents = {"uniform": ([], SRC), "cells": ([cells[i % 2] for i in range(576)],
+                                               jd.jpeg_size(os.path.join(ref_dir, "0.jpeg"),
+                                                            dev)[0])}
+    for p in tree_files(os.path.join(jp["data"], "train"))[:576]:
+        with open(p, "rb") as f:
+            contents["uniform"][0].append(f.read())
+    nproc = os.cpu_count()
+    for content, (bufs, side) in contents.items():
+        for n in (288, 576):
+            for threads in (1, 4, nproc):
+                jd.decode_batch(bufs[:n], side, side, nthreads=threads, strict=True, device=dev)
+                torch.cuda.synchronize()
+                reps = 3
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    jd.decode_batch(bufs[:n], side, side, nthreads=threads, strict=True,
+                                    device=dev)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / reps
+                print(f"JPEG decode (nvJPEG, from memory), {content} content, {n} planes of "
+                      f"{side}^2 ({sum(map(len, bufs[:n])) / n / 1e3:.1f} KB each) at {threads} "
+                      f"threads: {ms:.2f} ms, {n * 1e3 / ms:.0f} planes/s; {card}")
+    runs = (("JPEG tree, uniform content (nvJPEG, 4 threads)", []),
+            ("JPEG tree, cells content (nvJPEG, 4 threads)", ["--data-dir", cells_data]),
+            ("decoded pack", ["--pack", jp["dec"]]))
+    for i, (source, extra) in enumerate(runs):
+        run = os.path.join(WORK, "jpeg", f"loop_{i}")
+        os.makedirs(run)
+        argv = list(jp["argv"])  # --stats: the artifact phase 4c's run wrote
+        argv[argv.index("--out-dir") + 1] = run
+        argv[argv.index("--epochs") + 1] = "2"
+        cwd = os.getcwd()
+        os.chdir(run)
+        try:
+            rc = cli.main(argv + extra)
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            fail(f"the timing run from the {source} exited {rc}")
+        perf = [r for r in read_jsonl(os.path.join(run, "board", "jpeg", "metrics.jsonl"))
+                if "perf/step_time_s" in r]
+        for e, r in enumerate(perf, 1):
+            print(f"train loop from the {source}, epoch {e} of 4 steps: perf/step_time_s "
+                  f"{r['perf/step_time_s']:.4f}, perf/input_stall_pct "
+                  f"{r['perf/input_stall_pct']:.2f}; {card}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1029,6 +1322,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {sorted(built)} from rxtpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
+    jpeg_host_probe()
     for name, (_, log) in built.items():
         entry = ""
         for line in log.splitlines():
@@ -1451,6 +1745,11 @@ def main() -> int:
           f"{len(rows)}; K5 launches on this path {k5_launches}")
     if not math.isfinite(ds_gap) or ds_gap > limits["ds_gap"]:
         fail("predict_dataset with the fused stem disagrees with the unfused path")
+
+    # ---- 4c. JPEG input at full width ------------------------------------------
+    phase(f"4c JPEG input at full width (6x{SRC}^2 planes, quality 95): nvJPEG against rxtpu's "
+          "planes, pipelines from the tree, the CLI without --pack or stats")
+    jpeg_run = jpeg_phase(dev, cli, train_dir, shear_kernels, crop_normalize, card)
 
     # ---- 5. the card against the CPU ------------------------------------------
     phase("5 card against CPU: f32 predict logits; f32 train step against f64")
@@ -1925,6 +2224,7 @@ def main() -> int:
                   f"{views * 1e3 / host:.1f} views/s, peak memory {peak / 2**30:.3f} GiB "
                   f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB resident)")
     device_profile(lambda: preds[True](test_batch), 3, "fused predict steps", ev)
+    jpeg_timings(dev, cli, jpeg_run, card)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
 

@@ -4,21 +4,26 @@ Takes the same argv as ``rxtpu/cli.py`` (plus ``--device``), so one command
 line works for both:
 
 1. config resolution with rxtpu's rules (``--debug`` caps the examples,
-   pretraining is off without ``--pretrained-path``, the source size comes
-   from the pack's JSON);
-2. training, unless ``models/best_model_{experiment_id}.ckpt`` exists (or
+   pretraining is off without ``--pretrained-path``; the source size comes
+   from the pack's JSON, or from the header of the first record's JPEG);
+2. the stats artifact: loaded, or computed from the JPEG tree when it is
+   missing (``rxtpu_torch.tools.run_stats``, written where rxtpu writes it);
+3. training, unless ``models/best_model_{experiment_id}.ckpt`` exists (or
    ``--resume`` finds ``models/last_{experiment_id}.ckpt``): the stratified
    or experiment-wise split, the train and val pipelines over
-   ``{pack}/train.rxpack``, and the epoch loop with validation, best and
-   rolling checkpoints (``rxtpu_torch.train.loop``);
-3. the test phase on the best checkpoint (an rxtpu pickle or the port's own
+   ``{pack}/train.rxpack`` or, without ``--pack``, the JPEG tree under
+   ``--data-dir`` (bytes preloaded, decoded per batch by 4 threads on the
+   run's device), and the epoch loop with validation, best and rolling
+   checkpoints (``rxtpu_torch.train.loop``);
+4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
    format): plate groups from ``train.csv``, predict each test experiment
-   through ``{pack}/test.rxpack`` with the BN-folded model, mask by plate,
-   assign one class per row and write ``submission_{id}.csv``.
+   through ``{pack}/test.rxpack`` or its own JPEG store with the BN-folded
+   model, mask by plate, assign one class per row and write
+   ``submission_{id}.csv``.
 
 Flags whose path is not ported yet exit with a message that names them.
 
-    python -m rxtpu_torch.cli --pack DIR --experiment_id ID [--device cuda]
+    python -m rxtpu_torch.cli [--data-dir data] [--pack DIR] --experiment_id ID [--device cuda]
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from rxtpu_torch.config import (
 )
 
 REFERENCE_EXPERIMENT_TYPES = [3, 1, 0, 0, 0, 0, 2, 2, 3, 0, 0, 3, 1, 0, 0, 0, 2, 3]
+DECODER_THREADS = 4  # JPEG decode threads per device, as rxtpu (4 * local devices)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -47,7 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data-dir", default="data")
     p.add_argument("--stats", default=None, help="stats artifact (.json or .pickle)")
     p.add_argument("--image-ext", default="jpeg", choices=["jpeg", "png"])
-    p.add_argument("--pack", default=None, help="rxpack directory (raw packs only)")
+    p.add_argument("--pack", default=None,
+                   help="rxpack directory (raw packs only); without it, the JPEG tree")
     p.add_argument("--backbone", default=None, help="resnet18|34|50|101|152")
     p.add_argument("--head", default="mlp", choices=["mlp", "arcface"])
     p.add_argument("--pretrained-path", default=None)
@@ -107,8 +114,8 @@ def _not_ported(args) -> Optional[str]:
         return "--assign-method greedy_jax"
     if args.distributed or args.model_parallel != 1:
         return "--distributed / --model-parallel (multi-device)"
-    if not args.pack:
-        return "JPEG/PNG input without --pack (the native decoder)"
+    if not args.pack and args.image_ext != "jpeg":
+        return f"--image-ext {args.image_ext} without --pack (PNG decode)"
     if args.checkpoint_backend != "pickle":
         return f"--checkpoint-backend {args.checkpoint_backend}"
     if args.profile:
@@ -178,15 +185,49 @@ def resolve_config(args) -> Config:
     return cfg
 
 
-def probe_src_size(pack: str, split: str) -> int:
-    """Source image side from the pack's JSON."""
-    with open(os.path.join(pack, f"{split}.rxpack.json")) as f:
-        return int(json.load(f)["h"])
+def probe_src_size(cfg: Config, index, pack: Optional[str], device: torch.device) -> int:
+    """Source image side: from the pack's JSON, else from the JPEG header of
+    the first record's channel-1 site-1 image."""
+    if pack:
+        with open(os.path.join(pack, f"{index.split}.rxpack.json")) as f:
+            return int(json.load(f)["h"])
+    from rxtpu_torch.data.decode import jpeg_size
+    from rxtpu_torch.data.records import image_path
+
+    r = index.records[0]
+    return jpeg_size(image_path(cfg.data.path_data, index.split, r.experiment, r.plate,
+                                r.well, 1, 1, cfg.data.image_ext), device)[0]
+
+
+def load_or_compute_stats(cfg: Config, device: torch.device):
+    """The stats artifact; when it is missing, computed from the JPEG tree
+    into ``--stats`` (a ``.json`` path) or ``stats_experiments.json``."""
+    from rxtpu_torch.data.stats import load_stats
+
+    if os.path.exists(cfg.data.stats_path):
+        return load_stats(cfg.data.stats_path)
+    print(f"stats artifact {cfg.data.stats_path} missing; computing...")
+    from rxtpu_torch.tools import run_stats
+
+    out = cfg.data.stats_path if cfg.data.stats_path.endswith(".json") \
+        else "stats_experiments.json"
+    return run_stats(cfg.data.path_data, out, ext=cfg.data.image_ext, device=device)
+
+
+def _store(cfg: Config, index, pack: Optional[str]):
+    """The split's ``PackStore`` with ``--pack``, else its JPEG ``ByteStore``."""
+    if pack:
+        from rxtpu_torch.data.pack import PackStore
+
+        return PackStore(os.path.join(pack, f"{index.split}.rxpack"))
+    from rxtpu_torch.data.pipeline import ByteStore
+
+    return ByteStore(index, cfg.data.path_data, cfg.data.image_ext,
+                     preload=cfg.data.cache_bytes_in_ram)
 
 
 def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) -> None:
     """Split, pipelines, train state and the epoch loop (``rxtpu/cli.py:314-399``)."""
-    from rxtpu_torch.data.pack import PackStore
     from rxtpu_torch.data.pipeline import Pipeline
     from rxtpu_torch.data.records import (
         load_metadata, read_metadata_csvs, split_by_experiment, stratified_split,
@@ -211,15 +252,18 @@ def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) 
 
     idx_train = load_metadata(train_rows, controls, "train")
     idx_val = load_metadata(val_rows, controls, "train")
-    cfg.data.src_size = probe_src_size(args.pack, "train")
+    cfg.data.src_size = probe_src_size(cfg, idx_train, args.pack, device)
     if cfg.data.crop_size > cfg.data.src_size:
         raise SystemExit(f"crop size {cfg.data.crop_size} exceeds source image size "
                          f"{cfg.data.src_size}; pass --crop-size <= {cfg.data.src_size}")
-    store = PackStore(os.path.join(args.pack, "train.rxpack"))
+    store = _store(cfg, idx_train, args.pack)
+    store_val = store if args.pack else _store(cfg, idx_val, None)
+    source = dict(src_size=cfg.data.src_size, decoder_threads=DECODER_THREADS, device=device)
     pipe_train = Pipeline(idx_train, store, stats, global_bs, "train", seed=cfg.train.seed,
-                          prefetch_depth=cfg.data.prefetch_depth, two_site=args.two_site_train)
-    pipe_val = Pipeline(idx_val, store, stats, global_bs, "val", seed=cfg.train.seed,
-                        shuffle=False, drop_last=False, two_site=args.two_site_train)
+                          prefetch_depth=cfg.data.prefetch_depth, two_site=args.two_site_train,
+                          **source)
+    pipe_val = Pipeline(idx_val, store_val, stats, global_bs, "val", seed=cfg.train.seed,
+                        shuffle=False, drop_last=False, two_site=args.two_site_train, **source)
     model = build_model(cfg)
     state, lr = create_train_state(cfg, model, max(1, len(pipe_train)), device)
     print(f"lr: {lr}")
@@ -234,10 +278,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"{missing} is not ported to rxtpu_torch yet")
 
     from rxtpu_torch.config import resolve_device
-    from rxtpu_torch.data.pack import PackStore
     from rxtpu_torch.data.pipeline import Pipeline
     from rxtpu_torch.data.records import build_plate_groups, load_metadata, read_csv, read_metadata_csvs
-    from rxtpu_torch.data.stats import load_stats
     from rxtpu_torch.infer.plate_leak import constrained_predict, rescale
     from rxtpu_torch.infer.predict import Predictor, predict_dataset
     from rxtpu_torch.infer.submit import write_submission
@@ -250,11 +292,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     global_bs = global_batch_size(cfg, 1)
     print(f"Devices: 1 ({device.type}), global batch {global_bs}")
 
-    if not os.path.exists(cfg.data.stats_path):
-        raise SystemExit(
-            f"stats artifact {cfg.data.stats_path} missing; computing it is not "
-            "ported yet (write it with `python -m rxtpu.tools stats`)")
-    stats = load_stats(cfg.data.stats_path)
+    stats = load_or_compute_stats(cfg, device)
 
     ckpt_path = cfg.checkpoint_path
     # phase-skip when a best checkpoint exists, unless --resume finds a
@@ -302,16 +340,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"the test metadata has {len(experiments)} experiments")
 
     idx_test_all = load_metadata(test_rows, test_controls, "test")
-    store = PackStore(os.path.join(args.pack, "test.rxpack"))  # geometry from its JSON
-    if args.test_crop is not None and not 0 < args.test_crop <= store.h:
-        raise SystemExit(f"--test-crop {args.test_crop} must be in (0, {store.h}] "
+    src_size = probe_src_size(cfg, idx_test_all, args.pack, device)
+    if args.test_crop is not None and not 0 < args.test_crop <= src_size:
+        raise SystemExit(f"--test-crop {args.test_crop} must be in (0, {src_size}] "
                          "(test source image size)")
+    # one lazy mmap of the test pack for every experiment; without a pack,
+    # one byte store per experiment, so the test bytes held stay one
+    # experiment wide
+    pack_store = _store(cfg, idx_test_all, args.pack) if args.pack else None
     step = Predictor(model, args.test_crop, args.tta, args.tta_average,
                      dtype=getattr(torch, cfg.model.compute_dtype))
 
     pred_by_id = {}
     for i, experiment in enumerate(experiments):
-        pipe = Pipeline(idx_test_all.for_experiment(experiment), store, stats, global_bs)
+        idx_exp = idx_test_all.for_experiment(experiment)
+        pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
+                        src_size=src_size, decoder_threads=DECODER_THREADS, device=device)
         probs, ids = predict_dataset(step, pipe, device)
         exp_rows = [r for r in test_rows if r["experiment"] == experiment]
         if [r["id_code"] for r in exp_rows] != ids:

@@ -1,5 +1,13 @@
-"""Host input pipeline (counterpart of ``Pipeline`` in
-``rxtpu/data/pipeline.py``), over a raw ``PackStore``.
+"""Host input pipeline (counterpart of ``ByteStore`` and ``Pipeline`` in
+``rxtpu/data/pipeline.py``), over a raw ``PackStore`` or a JPEG tree.
+
+Sources: a ``PackStore`` (decoded planes, a memcpy per view) or a
+``ByteStore`` over ``{img_dir}/{split}/{experiment}/Plate{p}/{well}_s{site}_w{ch}.jpeg``,
+either preloaded (every well's compressed bytes cached in RAM, decoded per
+batch by ``decode_batch``) or streaming (paths handed to ``decode_files``,
+which reads and decodes in the native pool), both strict: a corrupt or
+missing file raises. JPEG batches decode on ``device``: numpy planes from
+libjpeg on the CPU, a uint8 tensor on the card from nvJPEG.
 
 - train / val: G=3 views ``[img, neg, pos]``, each with its own random site;
   with ``two_site=True`` G=6 as in test mode. Train shuffles each epoch with
@@ -23,14 +31,55 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from rxtpu_torch.data.decode import decode_batch, decode_files
 from rxtpu_torch.data.pack import PackStore
-from rxtpu_torch.data.records import MetadataIndex, WellRecord
+from rxtpu_torch.data.records import MetadataIndex, WellRecord, all_records, image_path
 from rxtpu_torch.data.stats import Stats, stats_table
+
+
+class ByteStore:
+    """A split's JPEG files: preloaded compressed bytes or paths to stream."""
+
+    channels = (1, 2, 3, 4, 5, 6)
+
+    def __init__(self, index: MetadataIndex, img_dir: str, ext: str = "jpeg",
+                 preload: bool = True):
+        self.index = index
+        self.img_dir = img_dir
+        self.ext = ext
+        self._cache: Dict[Tuple[str, int, str, int], List[bytes]] = {}
+        if preload:
+            for r in all_records(index):
+                for site in (1, 2):
+                    self._cache[(r.experiment, r.plate, r.well, site)] = self._read(r, site)
+
+    @property
+    def n_channels(self) -> int:
+        return len(self.channels)
+
+    @property
+    def preloaded(self) -> bool:
+        return bool(self._cache)
+
+    def paths(self, r: WellRecord, site: int) -> List[str]:
+        return [image_path(self.img_dir, self.index.split, r.experiment, r.plate, r.well,
+                           site, ch, self.ext) for ch in self.channels]
+
+    def _read(self, r: WellRecord, site: int) -> List[bytes]:
+        bufs = []
+        for p in self.paths(r, site):
+            with open(p, "rb") as f:
+                bufs.append(f.read())
+        return bufs
+
+    def get(self, r: WellRecord, site: int) -> List[bytes]:
+        cached = self._cache.get((r.experiment, r.plate, r.well, site))
+        return self._read(r, site) if cached is None else cached
 
 
 def host_shard_bounds(global_batch: int, num_hosts: int, host_id: int) -> Tuple[int, int]:
@@ -52,16 +101,27 @@ class _NpRandom:
 
 
 class Pipeline:
-    """Batches of one split's samples in ``mode`` train, val or test."""
+    """Batches of one split's samples in ``mode`` train, val or test.
 
-    def __init__(self, index: MetadataIndex, store: PackStore, stats: Stats,
-                 batch_size: int, mode: str = "test", seed: int = 0,
+    With a ``ByteStore``, ``src_size`` is the planes' side (the pack knows its
+    own), ``decoder_threads`` the decode pool's threads (0: every core) and
+    ``device`` where JPEGs decode (``images`` is then a tensor there).
+    """
+
+    def __init__(self, index: MetadataIndex, store: Union[PackStore, ByteStore],
+                 stats: Stats, batch_size: int, mode: str = "test", seed: int = 0,
                  shuffle: Optional[bool] = None, drop_last: Optional[bool] = None,
-                 prefetch_depth: int = 2, two_site: bool = False):
+                 prefetch_depth: int = 2, two_site: bool = False,
+                 src_size: Optional[int] = None, decoder_threads: int = 0, device="cpu"):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode must be train, val or test, got {mode!r}")
+        if isinstance(store, ByteStore) and src_size is None:
+            raise ValueError("a ByteStore pipeline needs src_size")
         self.index = index
         self.store = store
+        self.src_size = store.h if isinstance(store, PackStore) else src_size
+        self.decoder_threads = decoder_threads
+        self.device = torch.device(device)
         self.batch_size = batch_size
         self.mode = mode
         self.seed = seed
@@ -98,7 +158,7 @@ class Pipeline:
 
     def _make_batch(self, recs: List[WellRecord], epoch: int, row0: int
                     ) -> Dict[str, object]:
-        g, c, s = self.G, self.n_channels, self.store.h
+        g, c, s = self.G, self.n_channels, self.src_size
         lo, hi = host_shard_bounds(self.batch_size, 1, 0)
         bs = hi - lo
         n_real = len(recs)
@@ -113,7 +173,17 @@ class Pipeline:
             labels[k] = r.sirna
             exp_ids[k] = self._exp_index[r.experiment]
             valid[k] = 1.0 if i < n_real else 0.0
-        images = self.store.get_decoded_batch(keys).reshape(bs, g, c, s, s)
+        if isinstance(self.store, PackStore):
+            images = self.store.get_decoded_batch(keys)
+        elif self.store.preloaded:
+            bufs = [b for rec, site in keys for b in self.store.get(rec, site)]
+            images = decode_batch(bufs, s, s, nthreads=self.decoder_threads, strict=True,
+                                  device=self.device)
+        else:
+            paths = [p for rec, site in keys for p in self.store.paths(rec, site)]
+            images = decode_files(paths, s, s, nthreads=self.decoder_threads, strict=True,
+                                  device=self.device)
+        images = images.reshape(bs, g, c, s, s)
         return {
             "images": images,
             "labels": labels,
@@ -180,7 +250,8 @@ class Pipeline:
 def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device):
     """Yield batches as tensors on ``device``, one batch ahead of consumption.
 
-    On a CUDA device the arrays go through pinned host memory and a
+    Tensors (planes that nvJPEG decoded on the card) move only if they lie
+    elsewhere. On a CUDA device the arrays go through pinned host memory and a
     ``non_blocking`` copy on the current stream, queued before batch k is
     yielded: the host does not wait for the transfer, but on the card batch
     k+1's copy runs ahead of batch k's work, not beside it. Non-array
@@ -194,6 +265,8 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device
             if isinstance(v, np.ndarray):
                 t = torch.from_numpy(v)
                 out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t
+            elif isinstance(v, torch.Tensor):
+                out[k] = v.to(device)
             else:
                 out[k] = v
         return out

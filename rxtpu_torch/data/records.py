@@ -34,6 +34,13 @@ def get_celltype(experiment: str) -> str:
     return experiment.split("-")[0]
 
 
+def image_path(img_dir: str, split: str, experiment: str, plate: int, well: str,
+               site: int, channel: int, ext: str = "jpeg") -> str:
+    """``{img_dir}/{split}/{experiment}/Plate{plate}/{well}_s{site}_w{channel}.{ext}``."""
+    return "/".join([img_dir, split, experiment, f"Plate{plate}",
+                     f"{well}_s{site}_w{channel}.{ext}"])
+
+
 @dataclasses.dataclass(frozen=True)
 class WellRecord:
     """One well = one classification sample (2 sites x 6 channels)."""
@@ -74,6 +81,21 @@ class MetadataIndex:
             pos_controls={k: v for k, v in self.pos_controls.items() if k[0] == experiment},
             split=self.split,
         )
+
+
+def all_records(index: MetadataIndex) -> List[WellRecord]:
+    """Every distinct well of an index: samples, then negative and positive
+    controls, first appearance kept (controls repeat across plates' lists)."""
+    records = list(index.records) + list(index.neg_controls.values())
+    for wells in index.pos_controls.values():
+        records += wells
+    seen, out = set(), []
+    for r in records:
+        key = (r.experiment, r.plate, r.well)
+        if key not in seen:
+            seen.add(key)
+            out.append(r)
+    return out
 
 
 def read_csv(path: str) -> List[Row]:

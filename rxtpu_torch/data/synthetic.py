@@ -32,6 +32,10 @@ files: metadata CSVs, a stats JSON and a raw pack of the test views.
 
 Views are random uint8 [6, img_size, img_size] planes.
 
+``write_jpeg_tree`` writes a fixture's packed views as the JPEG tree that
+rxtpu's default run reads, ``{split}/{experiment}/Plate{p}/{well}_s{site}_w{ch}.jpeg``,
+through the port's encoder.
+
 ``randomize_`` gives a model random weights from a seeded
 ``torch.Generator``, BN affines and running stats included.
 """
@@ -39,6 +43,7 @@ Views are random uint8 [6, img_size, img_size] planes.
 from __future__ import annotations
 
 import csv
+import json
 import os
 from typing import Dict, List, Sequence
 
@@ -47,8 +52,9 @@ import torch
 from torch import nn
 
 from rxtpu_torch.config import NB_CHANNELS
+from rxtpu_torch.data.decode import encode_batch_jpeg
 from rxtpu_torch.data.pack import write_raw_pack
-from rxtpu_torch.data.records import NEG_CONTROL_WELL, build_plate_groups
+from rxtpu_torch.data.records import NEG_CONTROL_WELL, build_plate_groups, image_path
 from rxtpu_torch.data.stats import save_stats
 from rxtpu_torch.models.norm import BatchNorm
 from rxtpu_torch.models.resnet import BottleneckBlock, ResNetBlock
@@ -217,6 +223,35 @@ def make_train_fixture(root: str, nb_classes: int = 1108, n_experiments: int = 3
         "train_rows": train_rows,
         "test_rows": test_rows,
     }
+
+
+def write_jpeg_tree(pack_dir: str, data_dir: str, quality: int = 95, device="cpu") -> int:
+    """Write every view of ``{pack_dir}/{train,test}.rxpack`` under ``data_dir``
+    as one grayscale JPEG per channel plane at ``quality``: libjpeg on the
+    CPU, nvJPEG on a CUDA ``device``. Returns the number of files written."""
+    n_files = 0
+    for split in ("train", "test"):
+        pack = os.path.join(pack_dir, f"{split}.rxpack")
+        if not os.path.exists(pack):
+            continue
+        with open(pack + ".json") as f:
+            meta = json.load(f)
+        c, h, w = meta["channels"], meta["h"], meta["w"]
+        views = np.memmap(pack, dtype=np.uint8, mode="r").reshape(-1, c, h, w)
+        keys = sorted(meta["entries"].items(), key=lambda kv: kv[1])
+        for i in range(0, len(keys), 48):  # 288 planes per encode call
+            chunk = keys[i:i + 48]
+            planes = np.stack([views[ordinal] for _, ordinal in chunk]).reshape(-1, h, w)
+            bufs = encode_batch_jpeg(torch.from_numpy(planes).to(device), quality)
+            for j, (key, _) in enumerate(chunk):
+                exp, plate, well, site = key.split("|")
+                for ch in range(c):
+                    path = image_path(data_dir, split, exp, int(plate), well, int(site), ch + 1)
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                    with open(path, "wb") as f:
+                        f.write(bufs[j * c + ch])
+                    n_files += 1
+    return n_files
 
 
 @torch.no_grad()

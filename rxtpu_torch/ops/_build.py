@@ -1,10 +1,13 @@
-"""Build the CUDA sources under ``rxtpu_torch/csrc`` at first use.
+"""Build the native sources under ``rxtpu_torch/csrc`` at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds. Libraries go to ``rxtpu_torch/build/`` (git-ignored),
-named by a hash of the source and flags, so an edited source rebuilds.
-``build_all`` starts one ``nvcc`` per source, all together.
+build takes seconds. Each ``csrc/<name>.cpp`` is host code and compiles
+with ``g++`` the same way (``jpeg_host.cpp``, libjpeg, the CPU's JPEG
+decoder). Libraries go to ``rxtpu_torch/build/`` (git-ignored), named by a
+hash of the source and flags, so an edited source rebuilds. ``build_all``
+starts one compiler per source, all together; by default it builds the
+CUDA sources, which are what the card's host needs.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# libraries a source links against, after the source on the command line
+LINK = {"jpeg_host": ["-ljpeg", "-lpthread"], "jpeg_nv": ["-lnvjpeg"]}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -43,9 +49,25 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found on PATH: the host sources cannot be built")
+    return found
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS if _source(name).suffix == ".cu" else HOST_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = [*_flags(name), *LINK.get(name, [])]
+    digest = hashlib.sha1(_source(name).read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}.{digest.hexdigest()[:12]}.so"
 
 
@@ -53,7 +75,13 @@ def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = _source(name)
+    compiler = _nvcc() if src.suffix == ".cu" else _gxx()
+    cmd = [compiler, *_flags(name), "-o", str(tmp), str(src), *LINK.get(name, [])]
+    if src.suffix == ".cu" and name in LINK:
+        # the toolkit's libraries (libnvjpeg) load from where nvcc found them
+        lib_dir = Path(compiler).resolve().parent.parent / "lib64"
+        cmd += ["-Xlinker", f"-rpath,{lib_dir}"]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -62,15 +90,17 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+        src = _source(name).name
+        raise RuntimeError(f"the build of csrc/{src} failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
     out.with_suffix(".log").write_text(log)
     return log
 
 
 def build_all(names: List[str] = None) -> Dict[str, Tuple[float, str]]:
-    """Build every source that has no library yet, one ``nvcc`` each, all at
-    once. Returns ``{name: (seconds, compiler output)}`` for the ones built."""
+    """Build every source that has no library yet (by default every CUDA
+    source), one compiler each, all at once. Returns ``{name: (seconds,
+    compiler output)}`` for the ones built."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -90,7 +120,8 @@ def build_all(names: List[str] = None) -> Dict[str, Tuple[float, str]]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built first if
+    needed."""
     with _lock:
         lib = _loaded.get(name)
     if lib is not None:

@@ -6,12 +6,13 @@
   bytes and the test-mode Pipeline batches against rxtpu's;
 - an rxtpu pickle checkpoint (with its optax state) through the restricted
   unpickler;
-- the package imports with JAX, flax, optax, pandas, sklearn, tensorboardX
-  and rxtpu blocked, and
+- the package imports with JAX, flax, optax, pandas, sklearn, tensorboardX,
+  rxtpu, cv2 and PIL blocked, and
   ``chip_smoke.py`` refuses to run without a card or without the package;
 - the slice as a whole: rxtpu's CLI trains a tiny resnet18 checkpoint on a
   raw pack, then both CLIs run the test phase on it in f32 and must write
-  the same submission, byte for byte, also with ``--predict-scan-window 2``.
+  the same submission, byte for byte, also with ``--predict-scan-window 2``
+  and, for the port, from the JPEG tree without ``--pack``.
 """
 
 from __future__ import annotations
@@ -204,12 +205,13 @@ def test_rxtpu_pickle_checkpoint_loads_without_jax_classes(tmp_path):
 _IMPORT_ALL = """
 import sys, importlib, importlib.util, pkgutil
 for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "tensorboardX",
-             "rxtpu"):
+             "rxtpu", "cv2", "PIL"):
     sys.modules[name] = None
 import rxtpu_torch
 mods = [m.name for m in pkgutil.walk_packages(rxtpu_torch.__path__, "rxtpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
@@ -280,6 +282,22 @@ def test_slice_submission_identical_to_rxtpu(trained_root, monkeypatch):
     assert len(sub) == len(manifest["test"]) == 8
     pg = manifest["plate_groups"]
     assert all(pg[r.sirna, 0] == int(r.id_code.split("_")[1]) for r in sub.itertuples())
+
+
+def test_slice_jpeg_submission_identical_to_rxtpu(trained_root, monkeypatch):
+    """rxtpu's default input: the port's CLI without ``--pack`` reads the JPEG
+    tree under ``data/`` (preloaded bytes, libjpeg on the CPU; the source
+    size from a JPEG header) and writes the submission rxtpu wrote from its
+    pack of the same tree, byte for byte."""
+    root, _ = trained_root
+    monkeypatch.chdir(root)
+    monkeypatch.setattr(port_cli, "resolve_config", _f32(port_cli.resolve_config))
+    os.makedirs("port_jpeg", exist_ok=True)
+    argv = ARGV[:ARGV.index("--pack")]
+    assert port_cli.main(argv + ["--device", "cpu", "--out-dir", "port_jpeg"]) == 0
+    with open("submission_slice.csv", "rb") as a, \
+            open("port_jpeg/submission_slice.csv", "rb") as b:
+        assert b.read() == a.read()
 
 
 def test_slice_scan_window_submission_identical(trained_root, monkeypatch):
