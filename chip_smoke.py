@@ -6,9 +6,11 @@
 Phases, each ending the run with a non-zero exit when it fails:
 
 1. the card (nvidia-smi name and power limit) and the kernel build from
-   ``rxtpu_torch/csrc`` (one nvcc per source, all at once; ``jpeg_nv.cu``,
-   the nvJPEG decoder, among them), and the host's JPEG libraries (libjpeg's
-   header and library, nvJPEG's version);
+   ``rxtpu_torch/csrc`` (one compiler per source, all at once; ``jpeg_nv.cu``,
+   the nvJPEG decoder, and ``inflate_host.cpp``, the PNG reader and the
+   packs' codecs, with g++, among them), the host's JPEG libraries
+   (libjpeg's header and library, nvJPEG's version) and its codec libraries
+   (zlib's and zstd's headers and sonames, the codecs the port binds);
 2. every kernel against its plain PyTorch version on the card, bit for bit:
    K1 (crop_norm) in bf16, int8 (with exact .5 ties) and f32 at the test
    shape and the 364 crop; K2-K4 (the shear passes) at the train shapes
@@ -66,6 +68,19 @@ Phases, each ending the run with a non-zero exit when it fails:
    decoded planes, 1 epoch of 4 steps with K2-K4 once per step, finite
    losses, nvJPEG on the path, the submission; (c) the test phase on (b)'s
    checkpoint from ``--pack`` of the decoded planes writes the same bytes;
+4d. PNG input and compressed packs at full width: (a) phase 3's fixture
+   written as a PNG tree (``write_png_tree``): the port's PNG reader gives
+   the raw pack's planes bit for bit, and the pipeline's batches from the
+   tree, preloaded and streaming, equal the raw pack's in train, val and
+   test modes; (b) ``python -m rxtpu_torch.tools pack`` from the tree as
+   zlib, zlib+png and, where the host has ``libzstd.so.1``, zstd (level 3):
+   every ``PackStore`` batch equal to the raw pack's; (c)
+   ``rxtpu_torch.cli.main --image-ext png`` with no ``--pack`` and the stats
+   artifact absent: the stats within 1e-12 of the fixture's, 1 epoch of 4
+   steps with K2-K4 once per step and K1 in eval, finite losses, the
+   submission; the test phase from the zlib+png pack and from the raw pack
+   writes the same bytes; (d) ``png2jpeg`` on a copy of the tree: one JPEG
+   per PNG, each decoded by nvJPEG;
 5. the card against the CPU: f32 predict logits on one full-width batch, and
    one f32 train step (loss, updated parameters and BN statistics, momentum
    buffers) against the same step in f64, with the CPU's f32 step beside it;
@@ -95,7 +110,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    (288 planes) and one test batch (576) at 1, 4 and nproc threads, and the
    train loop's ``perf/step_time_s`` and ``perf/input_stall_pct`` from the
    JPEG tree and from the decoded pack (2 epochs of 4 steps each, 4 decode
-   threads).
+   threads); for uniform and microscopy-like content, a 288-plane batch of
+   PNGs decoded onto the card and each codec's inflate of 48 views at 1, 4
+   and nproc threads, and the train loop's step time and input stall from
+   the PNG tree, from zlib+png and zstd+png packs and from the raw pack.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
 phase 2's K6/K7 checks and the timing of every body's launches, device
@@ -1285,6 +1303,375 @@ def jpeg_timings(dev, cli, jp, card):
                   f"{r['perf/input_stall_pct']:.2f}; {card}")
 
 
+# ---------------------------------------------------------------------------
+# PNG input and compressed packs (phase 4d and its timings in phase 7): the
+# Kaggle release's PNG tree read by the port's PNG reader, and packs written
+# by the port's pack tool (csrc/inflate_host.cpp on the host)
+# ---------------------------------------------------------------------------
+PACK_MODES = {  # phase 4d (b)'s packs: tool flags (zstd at a low level, for time)
+    "zlib": ["--compress", "zlib"],
+    "zlib+png": ["--compress", "zlib", "--filter", "png"],
+    "zstd": ["--compress", "zstd", "--compress-level", "3"],
+}
+
+
+def codec_host_probe():
+    """Phase 1's probe of the host's codec libraries: zlib's and zstd's
+    headers and sonames, Python's zlib, and the codecs the port binds by
+    dlopen. Returns the codecs this host has."""
+    import zlib
+
+    from rxtpu_torch.data.decode import CODEC_LIBRARIES, load_codec
+
+    headers = [h for h in ("/usr/include/zlib.h", "/usr/include/zstd.h") if os.path.exists(h)]
+    ldc = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
+    sonames = sorted({ln.split()[0] for ln in ldc.splitlines()
+                      if re.search(r"libz\.so|libzstd", ln)})
+    codecs = []
+    for codec in CODEC_LIBRARIES:
+        try:
+            load_codec(codec)
+            codecs.append(codec)
+        except RuntimeError as e:
+            print(f"codec {codec} not available: {e}")
+    print(f"codec route on this host: headers {headers or 'absent'}, ldconfig {sonames}, "
+          f"Python zlib {zlib.ZLIB_RUNTIME_VERSION}; the port binds by dlopen "
+          f"{[CODEC_LIBRARIES[c] for c in codecs]} (csrc/inflate_host.cpp)")
+    return codecs
+
+
+def tree_files(root, ext):
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+                  if f.endswith(f".{ext}"))
+
+
+def run_cli(cli, run, argv):
+    """``cli.main(argv)`` from ``run``; returns its exit code."""
+    cwd = os.getcwd()
+    os.chdir(run)
+    try:
+        return cli.main(argv)
+    finally:
+        os.chdir(cwd)
+
+
+def pack_keys(index):
+    from rxtpu_torch.data.records import all_records
+
+    return [(r, s) for r in all_records(index) for s in (1, 2)]
+
+
+def png_phase(dev, cli, train_dir, shear_kernels, crop_normalize, codecs):
+    """Phase 4d: (a) phase 3's fixture as a PNG tree: the port's reader gives
+    the raw pack's planes bit for bit, and the pipeline's batches from the
+    tree (preloaded and streaming) equal the pack's in train, val and test
+    modes; (b) ``python -m rxtpu_torch.tools pack`` from the tree as zlib,
+    zlib+png and, where the host has libzstd.so.1, zstd: every PackStore
+    batch equal to the raw pack's; (c) the CLI with ``--image-ext png``, no
+    --pack and no stats artifact, then the test phase from the zlib+png and
+    the raw pack, the same submission bytes; (d) ``png2jpeg`` on a copy of
+    the tree. Returns what phase 7 reuses."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch import tools
+    from rxtpu_torch.data import decode as jd
+    from rxtpu_torch.data.pack import PackStore
+    from rxtpu_torch.data.pipeline import ByteStore, Pipeline
+    from rxtpu_torch.data.records import load_metadata, read_metadata_csvs
+    from rxtpu_torch.data.stats import load_stats
+    from rxtpu_torch.data.synthetic import write_png_tree
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    png_dir = os.path.join(WORK, "png")
+    data = os.path.join(png_dir, "data")
+    raw_dir = os.path.join(train_dir, "packs")
+    shutil.copytree(os.path.join(train_dir, "data", "metadata"), os.path.join(data, "metadata"))
+    t0 = time.perf_counter()
+    n_files = write_png_tree(raw_dir, data)
+    sizes = [os.path.getsize(p) for p in tree_files(data, "png")]
+    print(f"(a) PNG tree of phase 3's fixture: {n_files} files of {SRC}^2 (zlib level 6, the "
+          f"row filter) in {time.perf_counter() - t0:.2f} s, mean {np.mean(sizes) / 1e3:.1f} KB "
+          "per file")
+    indexes, raws = {}, {}
+    for split in ("train", "test"):
+        rows, ctrl = read_metadata_csvs(os.path.join(data, "metadata"), split)
+        indexes[split] = load_metadata(rows, ctrl, split)
+        raws[split] = PackStore(os.path.join(raw_dir, f"{split}.rxpack"))
+    t0, n_planes = time.perf_counter(), 0
+    for split, index in indexes.items():
+        keys, tree = pack_keys(index), ByteStore(index, data, "png", preload=False)
+        for i in range(0, len(keys), 48):
+            chunk = keys[i:i + 48]
+            paths = [p for r, s in chunk for p in tree.paths(r, s)]
+            got = jd.decode_files(paths, SRC, SRC, nthreads=0, strict=True, device=dev)
+            if isinstance(got, torch.Tensor) != (dev.type == "cuda") or not np.array_equal(
+                    host(got).reshape(len(chunk), 6, SRC, SRC),
+                    raws[split].get_decoded_batch(chunk)):
+                fail(f"the PNG reader's planes of {split} differ from the raw pack's")
+            n_planes += len(paths)
+    print(f"(a) the PNG reader's planes of all {n_planes} files (on the card by a pinned copy) "
+          f"equal the raw pack's bit for bit ({time.perf_counter() - t0:.2f} s)")
+    stats = load_stats(os.path.join(train_dir, "stats_experiments.json"))
+    n_checked = 0
+    for split, modes in (("train", ("train", "val")), ("test", ("test",))):
+        index = indexes[split]
+        for mode in modes:
+            kw = dict(seed=1, shuffle=mode == "train", drop_last=mode == "train")
+            want_pipe = Pipeline(index, raws[split], stats, B, mode, **kw)
+            for preload in (True, False):
+                pipe = Pipeline(index, ByteStore(index, data, "png", preload=preload), stats,
+                                B, mode, src_size=SRC, decoder_threads=4, device=dev, **kw)
+                got_b, want_b = list(pipe.epoch(0)), list(want_pipe.epoch(0))
+                if len(got_b) != len(want_b) or not got_b:
+                    fail(f"{mode} pipeline from the PNG tree gave {len(got_b)} batches, the "
+                         f"pack {len(want_b)}")
+                for g_, w_ in zip(got_b, want_b):
+                    if not np.array_equal(host(g_["images"]), w_["images"]) or \
+                            g_["id_codes"] != w_["id_codes"] or any(
+                                not np.array_equal(g_[k], w_[k])
+                                for k in ("labels", "mean", "std", "valid")):
+                        fail(f"{mode} batch from the PNG tree (preload {preload}) differs "
+                             "from the raw pack's")
+                    n_checked += 1
+    print(f"(a) pipeline batches from the PNG tree (preloaded and streaming) equal the raw "
+          f"pack's bit for bit: {n_checked} batches of train, val and test modes")
+
+    # (b) the pack tool from the tree, every codec this host has
+    packs = {}
+    raw_bytes = sum(os.path.getsize(os.path.join(raw_dir, f"{s}.rxpack")) for s in indexes)
+    for name, flags in PACK_MODES.items():
+        if name.split("+")[0] not in codecs:
+            print(f"(b) {name} pack skipped: this host cannot load "
+                  f"{jd.CODEC_LIBRARIES[name.split('+')[0]]}")
+            continue
+        out = os.path.join(png_dir, "packs_" + name.replace("+", "_"))
+        t0 = time.perf_counter()
+        tools.main(["pack", "--data", data, "--out", out, "--ext", "png", "--device", "cuda"]
+                   + flags)
+        wrote = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(out, f"{s}.rxpack")) for s in indexes)
+        t0, n_views = time.perf_counter(), 0
+        for split, index in indexes.items():
+            store, keys = PackStore(os.path.join(out, f"{split}.rxpack")), pack_keys(index)
+            for i in range(0, len(keys), 48):
+                if not np.array_equal(store.get_decoded_batch(keys[i:i + 48], nthreads=4),
+                                      raws[split].get_decoded_batch(keys[i:i + 48])):
+                    fail(f"{name} pack's {split} batch differs from the raw pack's")
+                n_views += len(keys[i:i + 48])
+        packs[name] = out
+        print(f"(b) tools pack {' '.join(flags)}: {size / 1e6:.1f} MB (raw {raw_bytes / 1e6:.1f}"
+              f" MB) in {wrote:.2f} s; its PackStore batches of all {n_views} views equal the "
+              f"raw pack's bit for bit ({time.perf_counter() - t0:.2f} s at 4 threads)")
+    print(f"(b) codecs run: {sorted(packs)}")
+    if "zlib+png" not in packs:
+        fail("the zlib+png pack was not written")
+
+    # (c) the CLI from the PNG tree: no --pack, the stats artifact absent
+    run = os.path.join(png_dir, "run")
+    os.makedirs(run)
+    stats_path = os.path.join(run, "stats_experiments.json")
+    argv = ["--experiment_id", "png", "--data-dir", data, "--image-ext", "png", "--stats",
+            stats_path, "--out-dir", run, "--split-by-experiment", "--epochs", "1",
+            "--no-plate-leak", "--device", "cuda"]
+    resolve = cli.resolve_config
+
+    def log_every_step(args):
+        cfg = resolve(args)
+        cfg.train.log_every_steps = 1
+        return cfg
+
+    cli.resolve_config = log_every_step
+    for kernel in shear_kernels:
+        kernel.launches = 0
+    crop_normalize.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = run_cli(cli, run, argv)
+        torch.cuda.synchronize()
+    finally:
+        cli.resolve_config = resolve
+    n_steps = 64 // B
+    launches = [k.launches for k in shear_kernels]
+    print(f"(c) cli --image-ext png (no --pack, stats absent) rc {rc} in "
+          f"{time.perf_counter() - t0:.2f} s; K2-K4 launches {launches} for {n_steps} train "
+          f"steps; K1 {crop_normalize.launches}")
+    if rc != 0:
+        fail(f"the PNG cli run exited {rc}")
+    if launches != [n_steps] * 3 or crop_normalize.launches == 0:
+        fail("the PNG run did not launch K2-K4 once per train step and K1 in eval")
+    written, want = load_stats(stats_path), stats
+    worst = max(float(np.max(np.abs(written[e][k] / want[e][k] - 1)))
+                for e in want for k in ("mean", "std"))
+    print(f"(c) stats written by the run ({len(written)} experiments) against the fixture's: "
+          f"max relative difference {worst:.3g} (limit {STATS_REL})")
+    if sorted(written) != sorted(want) or not worst <= STATS_REL:
+        fail("the stats computed from the PNG tree differ from the fixture's")
+    logged = read_jsonl(os.path.join(run, "board", "png", "metrics.jsonl"))
+    losses = [r["training/loss"] for r in logged if "training/loss" in r]
+    val_losses = [r["validation/loss"] for r in logged if "validation/loss" in r]
+    print(f"(c) train losses {[round(v, 4) for v in losses]}; val losses "
+          f"{[round(v, 4) for v in val_losses]}")
+    if len(losses) != n_steps or len(val_losses) != 2 or not all(
+            math.isfinite(v) for v in losses + val_losses):
+        fail("a logged loss of the PNG run is missing or not finite")
+    with open(os.path.join(run, "submission_png.csv"), "rb") as f:
+        sub_png = f.read()
+    rows, _ = read_metadata_csvs(os.path.join(data, "metadata"), "test")
+    if [line.split(",")[0] for line in sub_png.decode().splitlines()[1:]] != [
+            r["id_code"] for r in rows]:
+        fail("the PNG run's submission rows do not match the test ids")
+    for name, pack in (("zlib+png", packs["zlib+png"]), ("raw", raw_dir)):
+        out = os.path.join(run, "from_" + name.replace("+", "_"))
+        os.makedirs(out)
+        rc = run_cli(cli, run, [out if a == run else a for a in argv] + ["--pack", pack])
+        with open(os.path.join(out, "submission_png.csv"), "rb") as f:
+            same = f.read() == sub_png
+        print(f"(c) test phase from the {name} pack: rc {rc}; submission "
+              f"{'byte-equal to' if same else 'DIFFERENT from'} the PNG tree's "
+              f"({len(sub_png.splitlines()) - 1} rows)")
+        if rc != 0 or not same:
+            fail(f"the test phase from the {name} pack wrote another submission")
+
+    # (d) png2jpeg on a copy of the tree; nvJPEG decodes every JPEG it wrote
+    copy = os.path.join(png_dir, "data_jpeg")
+    shutil.copytree(data, copy)
+    t0 = time.perf_counter()
+    jd.encode_batch_jpeg.launches = 0
+    n = tools.run_png2jpeg(copy, device=dev)
+    wrote = time.perf_counter() - t0
+    pngs, jpegs = tree_files(copy, "png"), tree_files(copy, "jpeg")
+    if n != len(pngs) or [p[:-4] for p in pngs] != [p[:-5] for p in jpegs]:
+        fail(f"png2jpeg wrote {len(jpegs)} JPEGs for {len(pngs)} PNGs")
+    gap = 0
+    for i in range(0, len(jpegs), 288):
+        planes = host(jd.decode_files(jpegs[i:i + 288], SRC, SRC, strict=True, device=dev))
+        ref = host(jd.decode_files(pngs[i:i + 288], SRC, SRC, strict=True))
+        gap = max(gap, int(np.abs(planes.astype(np.int16) - ref).max()))
+    print(f"(d) png2jpeg (nvJPEG, {jd.encode_batch_jpeg.launches} encode calls): {n} JPEGs "
+          f"for {len(pngs)} PNGs in {wrote:.2f} s; nvJPEG decodes all of them, at most {gap} "
+          "levels from the PNG planes (uniform random content at quality 95)")
+    shutil.rmtree(copy)
+    return {"data": data, "raw": raw_dir, "packs": packs, "argv": argv}
+
+
+def png_timings(dev, cli, pp, card, codecs):
+    """Phase 7's PNG and pack numbers, at two contents: the fixture's uniform
+    random planes and microscopy-like ones (``tests/data/jpeg_ref``'s two
+    cell images, decoded and written as PNGs). A 288-plane batch (48 views)
+    of PNGs decoded from memory onto the card, and each codec's inflate of
+    48 views, at 1, 4 and nproc threads; the train loop's step time and
+    input stall from each PNG tree, from the zlib+png packs of both
+    contents, from the cells tree's zstd+png pack (where the host has
+    libzstd.so.1) and from the raw pack, at rxtpu's 4 threads, over the same
+    steps."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch import tools
+    from rxtpu_torch.data import decode as jd
+    from rxtpu_torch.data.synthetic import png_bytes
+
+    ref_dir = os.path.join(ROOT, "tests", "data", "jpeg_ref")
+    cell_paths = [os.path.join(ref_dir, n) for n in ("0.jpeg", "1.jpeg")]
+    side = jd.jpeg_size(cell_paths[0], dev)[0]
+    cell_planes = jd.decode_files(cell_paths, side, side, strict=True, device=dev)
+    cell_planes = np.ascontiguousarray(torch.as_tensor(cell_planes).cpu().numpy()[:, :SRC, :SRC])
+    cell_pngs = [png_bytes(s, SRC, SRC) for s in jd.deflate_filtered_batch(
+        cell_planes[:, None], level=6, use_filter=True, codec="zlib")]
+    uniform = []
+    for p in tree_files(os.path.join(pp["data"], "train"), "png")[:288]:
+        with open(p, "rb") as f:
+            uniform.append(f.read())
+    raw_views = np.memmap(os.path.join(pp["raw"], "train.rxpack"), dtype=np.uint8,
+                          mode="r").reshape(-1, 6, SRC, SRC)[:48]
+    contents = {"uniform": (uniform, np.ascontiguousarray(raw_views)),
+                "cells": ([cell_pngs[i % 2] for i in range(288)],
+                          np.stack([cell_planes[i % 2] for i in range(288)]).reshape(
+                              48, 6, SRC, SRC))}
+    nproc = os.cpu_count()
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    view_mb = 48 * 6 * SRC * SRC / 1e6
+    for content, (bufs, views) in contents.items():
+        kb = sum(map(len, bufs)) / len(bufs) / 1e3
+        for threads in (1, 4, nproc):
+            ms = timed(lambda: jd.decode_batch(bufs, SRC, SRC, nthreads=threads, strict=True,
+                                               device=dev))
+            print(f"PNG decode (host, from memory, then one pinned copy to the card), {content} "
+                  f"content, 288 planes of {SRC}^2 ({kb:.1f} KB each) at {threads} threads: "
+                  f"{ms:.2f} ms, {288e3 / ms:.0f} planes/s; {card}")
+        for codec, use_filter, level in (("zlib", False, 6), ("zlib", True, 6),
+                                         ("zstd", False, 3), ("zstd", True, 3)):
+            if codec not in codecs:
+                continue
+            name = codec + ("+png" if use_filter else "")
+            t0 = time.perf_counter()
+            streams = jd.deflate_filtered_batch(views, level, use_filter, 0, codec)
+            comp_ms = (time.perf_counter() - t0) * 1e3
+            lengths = np.array([len(s) for s in streams], np.int64)
+            offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+            data = np.frombuffer(b"".join(streams), np.uint8)
+            for threads in (1, 4, nproc):
+                if use_filter:
+                    ms = timed(lambda: jd.inflate_unfilter_batch(
+                        data, offsets, lengths, 6, SRC, SRC, threads, True, codec))
+                else:
+                    ms = timed(lambda: jd.inflate_batch(data, offsets, lengths,
+                                                        6 * SRC * SRC, threads, True, codec))
+                print(f"inflate {name} (level {level}), {content} content, 48 views of "
+                      f"6x{SRC}^2 (ratio {data.size / (view_mb * 1e6):.3f}, compressed in "
+                      f"{comp_ms:.0f} ms at {nproc} threads) at {threads} threads: {ms:.2f} "
+                      f"ms, {view_mb * 1e3 / ms:.0f} MB/s of planes; {card}")
+
+    # the cells tree: the two cell PNGs in every path, and its zlib+png pack
+    cells_data = os.path.join(WORK, "png", "cells_data")
+    shutil.copytree(os.path.join(pp["data"], "metadata"), os.path.join(cells_data, "metadata"))
+    for i, p in enumerate(tree_files(pp["data"], "png")):
+        out = os.path.join(cells_data, os.path.relpath(p, pp["data"]))
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "wb") as f:
+            f.write(cell_pngs[i % 2])
+    runs = [("PNG tree, uniform content (4 threads)", []),
+            ("PNG tree, cells content (4 threads)", ["--data-dir", cells_data]),
+            ("zlib+png pack, uniform content (4 threads)", ["--pack", pp["packs"]["zlib+png"]])]
+    for codec in ("zlib", "zstd"):  # the cells tree's packs, row-filtered
+        if codec not in codecs:
+            continue
+        out = os.path.join(WORK, "png", f"packs_cells_{codec}_png")
+        flags = ["--compress", codec, "--filter", "png"] + (
+            ["--compress-level", "3"] if codec == "zstd" else [])
+        tools.main(["pack", "--data", cells_data, "--out", out, "--ext", "png",
+                    "--device", "cuda"] + flags)
+        runs.append((f"{codec}+png pack, cells content (4 threads)", ["--pack", out]))
+    runs.append(("raw pack", ["--pack", pp["raw"]]))
+    for i, (source, extra) in enumerate(runs):
+        run = os.path.join(WORK, "png", f"loop_{i}")
+        os.makedirs(run)
+        argv = list(pp["argv"])  # --stats: the artifact phase 4d's run wrote
+        argv[argv.index("--out-dir") + 1] = run
+        argv[argv.index("--epochs") + 1] = "2"
+        rc = run_cli(cli, run, argv + extra)
+        if rc != 0:
+            fail(f"the timing run from the {source} exited {rc}")
+        perf = [r for r in read_jsonl(os.path.join(run, "board", "png", "metrics.jsonl"))
+                if "perf/step_time_s" in r]
+        for e, r in enumerate(perf, 1):
+            print(f"train loop from the {source}, epoch {e} of 4 steps: perf/step_time_s "
+                  f"{r['perf/step_time_s']:.4f}, perf/input_stall_pct "
+                  f"{r['perf/input_stall_pct']:.2f}; {card}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1323,6 +1710,7 @@ def main() -> int:
     built = _build.build_all()
     print(f"built {sorted(built)} from rxtpu_torch/csrc in {time.perf_counter() - t0:.2f} s")
     jpeg_host_probe()
+    codecs = codec_host_probe()
     for name, (_, log) in built.items():
         entry = ""
         for line in log.splitlines():
@@ -1750,6 +2138,11 @@ def main() -> int:
     phase(f"4c JPEG input at full width (6x{SRC}^2 planes, quality 95): nvJPEG against rxtpu's "
           "planes, pipelines from the tree, the CLI without --pack or stats")
     jpeg_run = jpeg_phase(dev, cli, train_dir, shear_kernels, crop_normalize, card)
+
+    # ---- 4d. PNG input and compressed packs at full width -----------------------
+    phase(f"4d PNG input and compressed packs at full width (6x{SRC}^2 planes): the PNG "
+          "reader, pipelines from the tree, the pack tool, the CLI from the tree and packs")
+    png_run = png_phase(dev, cli, train_dir, shear_kernels, crop_normalize, codecs)
 
     # ---- 5. the card against the CPU ------------------------------------------
     phase("5 card against CPU: f32 predict logits; f32 train step against f64")
@@ -2225,6 +2618,7 @@ def main() -> int:
                   f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB resident)")
     device_profile(lambda: preds[True](test_batch), 3, "fused predict steps", ev)
     jpeg_timings(dev, cli, jpeg_run, card)
+    png_timings(dev, cli, png_run, card, codecs)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
 

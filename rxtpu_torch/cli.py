@@ -5,19 +5,21 @@ line works for both:
 
 1. config resolution with rxtpu's rules (``--debug`` caps the examples,
    pretraining is off without ``--pretrained-path``; the source size comes
-   from the pack's JSON, or from the header of the first record's JPEG);
-2. the stats artifact: loaded, or computed from the JPEG tree when it is
+   from the pack's JSON, or from the header of the first record's image);
+2. the stats artifact: loaded, or computed from the image tree when it is
    missing (``rxtpu_torch.tools.run_stats``, written where rxtpu writes it);
 3. training, unless ``models/best_model_{experiment_id}.ckpt`` exists (or
    ``--resume`` finds ``models/last_{experiment_id}.ckpt``): the stratified
    or experiment-wise split, the train and val pipelines over
-   ``{pack}/train.rxpack`` or, without ``--pack``, the JPEG tree under
-   ``--data-dir`` (bytes preloaded, decoded per batch by 4 threads on the
-   run's device), and the epoch loop with validation, best and rolling
+   ``{pack}/train.rxpack`` (raw, or zlib/zstd with or without the row
+   filter, inflated by 4 host threads) or, without ``--pack``, the image
+   tree under ``--data-dir`` (``--image-ext jpeg`` or ``png``; bytes
+   preloaded, decoded per batch by 4 threads: JPEGs on the run's device,
+   PNGs on the host), and the epoch loop with validation, best and rolling
    checkpoints (``rxtpu_torch.train.loop``);
 4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
    format): plate groups from ``train.csv``, predict each test experiment
-   through ``{pack}/test.rxpack`` or its own JPEG store with the BN-folded
+   through ``{pack}/test.rxpack`` or its own image store with the BN-folded
    model, mask by plate, assign one class per row and write
    ``submission_{id}.csv``.
 
@@ -42,7 +44,7 @@ from rxtpu_torch.config import (
 )
 
 REFERENCE_EXPERIMENT_TYPES = [3, 1, 0, 0, 0, 0, 2, 2, 3, 0, 0, 3, 1, 0, 0, 0, 2, 3]
-DECODER_THREADS = 4  # JPEG decode threads per device, as rxtpu (4 * local devices)
+DECODER_THREADS = 4  # decode and inflate threads per device, as rxtpu (4 * local devices)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -54,7 +56,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--stats", default=None, help="stats artifact (.json or .pickle)")
     p.add_argument("--image-ext", default="jpeg", choices=["jpeg", "png"])
     p.add_argument("--pack", default=None,
-                   help="rxpack directory (raw packs only); without it, the JPEG tree")
+                   help="rxpack directory (raw or compressed); without it, the image tree")
     p.add_argument("--backbone", default=None, help="resnet18|34|50|101|152")
     p.add_argument("--head", default="mlp", choices=["mlp", "arcface"])
     p.add_argument("--pretrained-path", default=None)
@@ -114,8 +116,6 @@ def _not_ported(args) -> Optional[str]:
         return "--assign-method greedy_jax"
     if args.distributed or args.model_parallel != 1:
         return "--distributed / --model-parallel (multi-device)"
-    if not args.pack and args.image_ext != "jpeg":
-        return f"--image-ext {args.image_ext} without --pack (PNG decode)"
     if args.checkpoint_backend != "pickle":
         return f"--checkpoint-backend {args.checkpoint_backend}"
     if args.profile:
@@ -186,22 +186,23 @@ def resolve_config(args) -> Config:
 
 
 def probe_src_size(cfg: Config, index, pack: Optional[str], device: torch.device) -> int:
-    """Source image side: from the pack's JSON, else from the JPEG header of
-    the first record's channel-1 site-1 image."""
+    """Source image side: from the pack's JSON, else from the header of the
+    first record's channel-1 site-1 image (JPEG or PNG)."""
     if pack:
         with open(os.path.join(pack, f"{index.split}.rxpack.json")) as f:
             return int(json.load(f)["h"])
-    from rxtpu_torch.data.decode import jpeg_size
+    from rxtpu_torch.data.decode import image_size
     from rxtpu_torch.data.records import image_path
 
     r = index.records[0]
-    return jpeg_size(image_path(cfg.data.path_data, index.split, r.experiment, r.plate,
-                                r.well, 1, 1, cfg.data.image_ext), device)[0]
+    return image_size(image_path(cfg.data.path_data, index.split, r.experiment, r.plate,
+                                 r.well, 1, 1, cfg.data.image_ext), device)[0]
 
 
 def load_or_compute_stats(cfg: Config, device: torch.device):
-    """The stats artifact; when it is missing, computed from the JPEG tree
-    into ``--stats`` (a ``.json`` path) or ``stats_experiments.json``."""
+    """The stats artifact; when it is missing, computed from the image tree
+    (``--image-ext``) into ``--stats`` (a ``.json`` path) or
+    ``stats_experiments.json``."""
     from rxtpu_torch.data.stats import load_stats
 
     if os.path.exists(cfg.data.stats_path):
@@ -215,7 +216,7 @@ def load_or_compute_stats(cfg: Config, device: torch.device):
 
 
 def _store(cfg: Config, index, pack: Optional[str]):
-    """The split's ``PackStore`` with ``--pack``, else its JPEG ``ByteStore``."""
+    """The split's ``PackStore`` with ``--pack``, else its image ``ByteStore``."""
     if pack:
         from rxtpu_torch.data.pack import PackStore
 

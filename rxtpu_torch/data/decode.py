@@ -1,8 +1,10 @@
-"""Batch JPEG decode and encode (counterpart of the JPEG half of
+"""Batch image decode and encode, and the packs' codecs (counterpart of
 ``rxtpu/data/decode.py``: ``decode_batch``, ``decode_files``,
-``encode_batch_jpeg``; plus ``jpeg_size``, a header-only size probe).
+``encode_batch_jpeg``, ``inflate_batch``, ``deflate_filtered_batch``,
+``inflate_unfilter_batch``, ``filter_plane_py``, ``unfilter_plane_py``; plus
+the header probes ``jpeg_size``, ``png_size`` and ``image_size``).
 
-Two routes, chosen by where the planes live:
+JPEGs take one of two routes, chosen by where the planes live:
 
 - on the CPU (``device="cpu"``; planes on the CPU to encode): the port's copy
   of rxtpu's libjpeg thread pool, ``csrc/jpeg_host.cpp``, built with ``g++
@@ -15,10 +17,26 @@ Two routes, chosen by where the planes live:
   differ slightly from rxtpu's (``chip_smoke.py`` holds them to
   ``tests/data/jpeg_ref`` by a stated limit).
 
+PNGs, and the compressed packs' zlib and zstd streams, are host work on
+every device: ``csrc/inflate_host.cpp`` (the port's copy of rxtpu's
+inflate, deflate and row-filter pool, plus a PNG reader), built with ``g++``
+at first use, binds ``libz.so.1`` and ``libzstd.so.1`` by ``dlopen`` when a
+codec is first asked for (``load_codec``); a host that lacks one raises and
+names it. PNG planes for a CUDA device are read into pinned host memory and
+reach the card by one copy on PyTorch's current stream. A batch that mixes
+JPEGs and PNGs (routed per buffer by the JPEG magic, per path by the
+extension, as rxtpu routes them) lands in one array or tensor.
+
 Failed images decode to zeros and are counted; ``strict=True`` raises
-instead. Departures from rxtpu: nothing falls back to cv2. A PNG buffer or
-file raises ``NotImplementedError`` (PNG decode is not ported yet), and a
-library that does not build raises with the compiler's output.
+instead. Departures from rxtpu, which reads every non-JPEG source with cv2:
+nothing falls back to cv2 or to Python's ``zlib``. The PNG reader takes
+8-bit grayscale, non-interlaced files (RxRx1's kind) and raises, even with
+``strict=False``, on any other kind (colour, palette, 16-bit, interlaced),
+which cv2 converts; it checks the CRC of every critical chunk. A path that
+is neither ``.jpeg``/``.jpg`` nor ``.png`` raises. A library that does not
+build raises with the compiler's output. ``filter_plane_py``,
+``unfilter_plane_py`` and ``png_decode_py`` are plain versions for the
+tests.
 """
 
 from __future__ import annotations
@@ -26,8 +44,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import struct
 import threading
-from typing import Dict, List, Sequence, Tuple, Union
+import zlib
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,11 +55,16 @@ import torch
 from rxtpu_torch.ops import _build
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+JPEG_MAGIC = b"\xff\xd8"
 JPEG_EXTS = (".jpeg", ".jpg")
+CODECS = {"zlib": 0, "zstd": 1}
+CODEC_LIBRARIES = {"zlib": "libz.so.1", "zstd": "libzstd.so.1"}
+_PNG_UNSUPPORTED = 4  # csrc/inflate_host.cpp PngStatus kUnsupported
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _contexts: Dict[Tuple[int, int], int] = {}  # (device index, threads) -> nvJPEG context
 _contexts_lock = threading.Lock()
+Planes = Union[np.ndarray, torch.Tensor]
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,6 +95,39 @@ def _nv_lib() -> ctypes.CDLL:
                lib.rxtpu_nvjpeg_encode_batch, lib.rxtpu_nvjpeg_size):
         fn.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _inflate_lib() -> ctypes.CDLL:
+    lib = _build.load_library("inflate_host")
+    lib.rxtpu_codec_load.argtypes = [_I, ctypes.c_char_p, ctypes.c_char_p, _I]
+    lib.rxtpu_inflate_batch.argtypes = [_P, _P, _P, _I, _P, _L, _I, _I]
+    lib.rxtpu_deflate_filtered_batch.argtypes = [_P, _I, _L, _L, _L, _I, _I, _P, _L, _P, _I,
+                                                 _I]
+    lib.rxtpu_inflate_unfilter_batch.argtypes = [_P, _P, _P, _I, _P, _L, _L, _L, _I, _I]
+    lib.rxtpu_png_decode_batch.argtypes = [_P, _P, _P, _I, _P, _I, _I, _I, _P]
+    lib.rxtpu_png_decode_files.argtypes = [ctypes.c_char_p, _P, _I, _P, _I, _I, _I, _P]
+    lib.rxtpu_png_size.argtypes = [_P, _L, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    for fn in (lib.rxtpu_codec_load, lib.rxtpu_inflate_batch,
+               lib.rxtpu_deflate_filtered_batch, lib.rxtpu_inflate_unfilter_batch,
+               lib.rxtpu_png_decode_batch, lib.rxtpu_png_decode_files, lib.rxtpu_png_size):
+        fn.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)  # a failure raises and is not cached
+def load_codec(codec: str) -> Tuple[ctypes.CDLL, int]:
+    """The host library with ``codec`` ("zlib" or "zstd") bound, and the
+    codec's id. Binds ``libz.so.1`` or ``libzstd.so.1`` at first use; raises
+    ``RuntimeError`` naming the library when this host cannot load it."""
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r} (want 'zlib' or 'zstd')")
+    lib, cid = _inflate_lib(), CODECS[codec]
+    err = ctypes.create_string_buffer(512)
+    if lib.rxtpu_codec_load(cid, CODEC_LIBRARIES[codec].encode(), err, len(err)) != 0:
+        raise RuntimeError(f"the {codec} codec needs {CODEC_LIBRARIES[codec]}, which this "
+                           f"host cannot load: {err.value.decode(errors='replace')}")
+    return lib, cid
 
 
 def _nv_check(rc: int, what: str) -> int:
@@ -106,7 +164,7 @@ def _nv_context(device: torch.device, nthreads: int) -> Tuple[int, int]:
 def _device(device) -> torch.device:
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"JPEG decode runs on the CPU or a CUDA device, not {device}")
+        raise ValueError(f"image decode runs on the CPU or a CUDA device, not {device}")
     return device
 
 
@@ -124,19 +182,10 @@ def _path_blob(paths: Sequence[str]):
     return b"".join(encoded), offsets
 
 
-def decode_batch(buffers: Sequence[bytes], height: int, width: int, nthreads: int = 0,
-                 strict: bool = False, device="cpu") -> Union[np.ndarray, torch.Tensor]:
-    """Decode grayscale JPEG buffers to uint8 [N, H, W]: a numpy array for
-    ``device="cpu"``, a tensor on a CUDA device.
+# ---- JPEG ------------------------------------------------------------------
 
-    Failed or mismatched images decode to zeros; ``strict=True`` raises
-    instead (rxtpu's parity mode: the reference crashes on a corrupt file).
-    ``nthreads <= 0`` uses every core.
-    """
-    device = _device(device)
-    for i, b in enumerate(buffers):
-        if b[:8] == PNG_MAGIC:
-            raise NotImplementedError(f"buffer {i} is a PNG: PNG decode is not ported yet")
+def _jpeg_buffers(buffers: Sequence[bytes], height: int, width: int, nthreads: int,
+                  device: torch.device) -> Tuple[Planes, int]:
     n = len(buffers)
     data, offsets, lengths = _concat(buffers) if n else (None, None, None)
     if device.type == "cpu":
@@ -144,59 +193,167 @@ def decode_batch(buffers: Sequence[bytes], height: int, width: int, nthreads: in
         failures = n and _host_lib().rxtpu_decode_batch(
             data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, n, out.ctypes.data,
             height, width, nthreads)
+        return out, failures
+    out = torch.empty((n, height, width), dtype=torch.uint8, device=device)
+    failures = 0
+    if n:
+        ctx, threads = _nv_context(device, nthreads)
+        failures = _nv_check(_nv_lib().rxtpu_nvjpeg_decode_batch(
+            ctx, data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, n,
+            out.data_ptr(), height, width, threads,
+            torch.cuda.current_stream(device).cuda_stream), "decode_batch")
+        decode_batch.launches += 1
+    return out, failures
+
+
+def _jpeg_files(paths: Sequence[str], height: int, width: int, nthreads: int,
+                device: torch.device) -> Tuple[Planes, int]:
+    n = len(paths)
+    blob, offsets = _path_blob(paths) if n else (None, None)
+    if device.type == "cpu":
+        out = np.empty((n, height, width), dtype=np.uint8)
+        failures = n and _host_lib().rxtpu_decode_files(
+            blob, offsets.ctypes.data, n, out.ctypes.data, height, width, nthreads)
+        return out, failures
+    out = torch.empty((n, height, width), dtype=torch.uint8, device=device)
+    failures = 0
+    if n:
+        ctx, threads = _nv_context(device, nthreads)
+        failures = _nv_check(_nv_lib().rxtpu_nvjpeg_decode_files(
+            ctx, blob, offsets.ctypes.data, n, out.data_ptr(), height, width, threads,
+            torch.cuda.current_stream(device).cuda_stream), "decode_files")
+        decode_files.launches += 1
+    return out, failures
+
+
+# ---- PNG -------------------------------------------------------------------
+
+def _ihdr_text(head: bytes) -> str:
+    """The kind of PNG that an IHDR (a file's first 33 bytes) declares."""
+    if len(head) < 29 or head[:8] != PNG_MAGIC or head[12:16] != b"IHDR":
+        return "no IHDR"
+    depth, colour, interlace = head[24], head[25], head[28]
+    return (f"bit depth {depth}, colour type {colour}"
+            + (", interlaced" if interlace else ", not interlaced"))
+
+
+def _png_run(call: Callable[[int, int], int], n: int, height: int, width: int,
+             device: torch.device, describe: Callable[[int], str]) -> Tuple[Planes, int]:
+    """Run a native PNG batch ``call(out pointer, status pointer)`` into host
+    planes (pinned for a CUDA device, then one copy there on the current
+    stream). Raises on an unsupported PNG; returns (planes, failures)."""
+    status = np.zeros(n, np.int32)
+    if device.type == "cuda":
+        host = torch.empty((n, height, width), dtype=torch.uint8, pin_memory=True)
+        ptr = host.data_ptr()
+    else:
+        host = np.empty((n, height, width), dtype=np.uint8)
+        ptr = host.ctypes.data
+    failures = call(ptr, status.ctypes.data) if n else 0
+    unsupported = np.flatnonzero(status == _PNG_UNSUPPORTED)
+    if unsupported.size:
+        raise ValueError(
+            f"{describe(int(unsupported[0]))}: the port reads 8-bit grayscale PNGs without "
+            "interlace only (RxRx1's kind; cv2, which rxtpu reads PNGs with, converts other "
+            f"kinds); {unsupported.size}/{n} PNGs of this batch are of another kind")
+    if device.type == "cuda":
+        return host.to(device, non_blocking=True), failures
+    return host, failures
+
+
+def _png_buffers(buffers: Sequence[bytes], height: int, width: int, nthreads: int,
+                 device: torch.device) -> Tuple[Planes, int]:
+    lib, _ = load_codec("zlib")
+    data, offsets, lengths = _concat(buffers) if buffers else (None, None, None)
+    return _png_run(
+        lambda out, status: lib.rxtpu_png_decode_batch(
+            data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, len(buffers), out,
+            height, width, nthreads, status),
+        len(buffers), height, width, device,
+        lambda i: f"buffer {i} ({_ihdr_text(buffers[i][:33])})")
+
+
+def _png_files(paths: Sequence[str], height: int, width: int, nthreads: int,
+               device: torch.device) -> Tuple[Planes, int]:
+    lib, _ = load_codec("zlib")
+    blob, offsets = _path_blob(paths) if paths else (None, None)
+
+    def describe(i):
+        with open(paths[i], "rb") as f:
+            return f"{paths[i]} ({_ihdr_text(f.read(33))})"
+
+    return _png_run(
+        lambda out, status: lib.rxtpu_png_decode_files(
+            blob, offsets.ctypes.data, len(paths), out, height, width, nthreads, status),
+        len(paths), height, width, device, describe)
+
+
+def _routed(items: Sequence, is_jpeg: Sequence[bool], jpeg_fn, png_fn, height: int,
+            width: int, device: torch.device) -> Tuple[Planes, int]:
+    """Decode each item through its route; a mixed batch lands in one array
+    (CPU) or one tensor (CUDA device: the JPEG planes from nvJPEG, which has
+    returned when they are written, and the PNG planes' copy are gathered on
+    the current stream)."""
+    jp = [i for i, m in enumerate(is_jpeg) if m]
+    other = [i for i, m in enumerate(is_jpeg) if not m]
+    if not other or not jp:
+        return (png_fn if other else jpeg_fn)(items)
+    sub_j, f_j = jpeg_fn([items[i] for i in jp])
+    sub_p, f_p = png_fn([items[i] for i in other])
+    n = len(items)
+    if device.type == "cpu":
+        out = np.empty((n, height, width), dtype=np.uint8)
     else:
         out = torch.empty((n, height, width), dtype=torch.uint8, device=device)
-        failures = 0
-        if n:
-            ctx, threads = _nv_context(device, nthreads)
-            failures = _nv_check(_nv_lib().rxtpu_nvjpeg_decode_batch(
-                ctx, data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, n,
-                out.data_ptr(), height, width, threads,
-                torch.cuda.current_stream(device).cuda_stream), "decode_batch")
-            decode_batch.launches += 1
+    out[jp] = sub_j
+    out[other] = sub_p
+    return out, f_j + f_p
+
+
+def decode_batch(buffers: Sequence[bytes], height: int, width: int, nthreads: int = 0,
+                 strict: bool = False, device="cpu") -> Planes:
+    """Decode grayscale JPEG and PNG buffers to uint8 [N, H, W]: a numpy array
+    for ``device="cpu"``, a tensor on a CUDA device.
+
+    A buffer that starts with the JPEG magic goes to the JPEG decoder, any
+    other to the PNG reader. Failed or mismatched images decode to zeros;
+    ``strict=True`` raises instead (rxtpu's parity mode: the reference
+    crashes on a corrupt file). An unsupported kind of PNG raises either way.
+    ``nthreads <= 0`` uses every core.
+    """
+    device = _device(device)
+    planes, failures = _routed(
+        buffers, [b[:2] == JPEG_MAGIC for b in buffers],
+        lambda b: _jpeg_buffers(b, height, width, nthreads, device),
+        lambda b: _png_buffers(b, height, width, nthreads, device), height, width, device)
     if strict and failures:
-        raise ValueError(f"{failures}/{n} images failed to decode")
-    return out
+        raise ValueError(f"{failures}/{len(buffers)} images failed to decode")
+    return planes
 
 
 def decode_files(paths: Sequence[str], height: int, width: int, nthreads: int = 0,
-                 strict: bool = False, device="cpu") -> Union[np.ndarray, torch.Tensor]:
-    """Read and decode grayscale JPEG files to uint8 [N, H, W] (numpy on the
-    CPU, a tensor on a CUDA device), the reads inside the native pool.
+                 strict: bool = False, device="cpu") -> Planes:
+    """Read and decode grayscale JPEG (``.jpeg``, ``.jpg``) and PNG (``.png``)
+    files to uint8 [N, H, W] (numpy on the CPU, a tensor on a CUDA device),
+    the reads inside the native pools.
 
-    Failed files decode to zeros; ``strict=True`` raises instead. A path that
-    does not end in ``.jpeg`` or ``.jpg`` raises ``NotImplementedError``.
+    Failed files decode to zeros; ``strict=True`` raises instead. Another
+    extension, or an unsupported kind of PNG, raises.
     """
     device = _device(device)
     for p in paths:
-        if not p.endswith(JPEG_EXTS):
-            kind = "PNG" if p.endswith(".png") else "non-JPEG"
-            raise NotImplementedError(f"{p}: {kind} decode is not ported yet")
-    n = len(paths)
-    if device.type == "cpu":
-        out = np.empty((n, height, width), dtype=np.uint8)
-        failures = 0
-        if n:
-            blob, offsets = _path_blob(paths)
-            failures = _host_lib().rxtpu_decode_files(
-                blob, offsets.ctypes.data, n, out.ctypes.data, height, width, nthreads)
-    else:
-        out = torch.empty((n, height, width), dtype=torch.uint8, device=device)
-        failures = 0
-        if n:
-            blob, offsets = _path_blob(paths)
-            ctx, threads = _nv_context(device, nthreads)
-            failures = _nv_check(_nv_lib().rxtpu_nvjpeg_decode_files(
-                ctx, blob, offsets.ctypes.data, n, out.data_ptr(), height, width, threads,
-                torch.cuda.current_stream(device).cuda_stream), "decode_files")
-            decode_files.launches += 1
+        if not p.endswith(JPEG_EXTS + (".png",)):
+            raise ValueError(f"{p}: only JPEG (.jpeg, .jpg) and PNG (.png) files are read")
+    planes, failures = _routed(
+        paths, [p.endswith(JPEG_EXTS) for p in paths],
+        lambda p: _jpeg_files(p, height, width, nthreads, device),
+        lambda p: _png_files(p, height, width, nthreads, device), height, width, device)
     if strict and failures:
-        raise ValueError(f"{failures}/{n} files failed to read/decode")
-    return out
+        raise ValueError(f"{failures}/{len(paths)} files failed to read/decode")
+    return planes
 
 
-def encode_batch_jpeg(planes: Union[np.ndarray, torch.Tensor], quality: int = 95,
-                      nthreads: int = 0) -> List[bytes]:
+def encode_batch_jpeg(planes: Planes, quality: int = 95, nthreads: int = 0) -> List[bytes]:
     """Encode uint8 [N, H, W] planes to grayscale JPEG buffers (quality 95, as
     rxtpu's ``png2jpeg``): with libjpeg for planes on the CPU (numpy or a CPU
     tensor; rxtpu's bytes), with nvJPEG for a tensor on a CUDA device.
@@ -235,7 +392,8 @@ def jpeg_size(path: str, device="cpu") -> Tuple[int, int]:
     (host work on both)."""
     device = _device(device)
     if not path.endswith(JPEG_EXTS):
-        raise NotImplementedError(f"{path}: only JPEG headers are read (PNG is not ported yet)")
+        raise NotImplementedError(f"{path}: jpeg_size reads JPEG headers only "
+                                  "(image_size reads PNG ones too)")
     with open(path, "rb") as f:
         data = f.read()
     arr = np.frombuffer(data, dtype=np.uint8)
@@ -250,6 +408,205 @@ def jpeg_size(path: str, device="cpu") -> Tuple[int, int]:
     if rc != 0:
         raise ValueError(f"{path}: not a readable JPEG header (code {rc})")
     return h.value, w.value
+
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(height, width) of a PNG file from its IHDR alone (its first 33
+    bytes, CRC checked)."""
+    lib, _ = load_codec("zlib")
+    with open(path, "rb") as f:
+        head = f.read(33)
+    arr = np.frombuffer(head, dtype=np.uint8)
+    h, w = _I(), _I()
+    rc = lib.rxtpu_png_size(arr.ctypes.data, len(head), ctypes.byref(h), ctypes.byref(w))
+    if rc != 0:
+        raise ValueError(f"{path}: not a readable PNG header (code {rc})")
+    return h.value, w.value
+
+
+def image_size(path: str, device="cpu") -> Tuple[int, int]:
+    """(height, width) of a ``.png`` file by ``png_size``, else of a JPEG by
+    ``jpeg_size`` on ``device``."""
+    return png_size(path) if path.endswith(".png") else jpeg_size(path, device)
+
+
+# ---- compressed packs: zlib and zstd streams, with or without the row filter
+
+def _streams(data: np.ndarray, offsets, lengths):
+    """``data`` as a contiguous uint8 array (a memmap stays a view: no copy
+    of the pack), ``offsets`` and ``lengths`` as int64, every stream inside
+    ``data``."""
+    data = np.ascontiguousarray(data)
+    if data.dtype != np.uint8:
+        raise ValueError(f"stream data must be uint8, got {data.dtype}")
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    if offsets.shape != lengths.shape or offsets.ndim != 1:
+        raise ValueError("offsets and lengths must be two 1-d arrays of one length")
+    if len(offsets) and (offsets.min() < 0 or lengths.min() < 0
+                         or (offsets + lengths).max() > data.size):
+        raise ValueError(f"a stream lies outside the {data.size}-byte buffer")
+    return data, offsets, lengths
+
+
+def inflate_batch(data: np.ndarray, offsets, lengths, item_bytes: int, nthreads: int = 0,
+                  strict: bool = False, codec: str = "zlib") -> np.ndarray:
+    """Decompress N zlib/zstd streams out of one contiguous uint8 buffer
+    (typically a pack's memmap, read lazily by the pool's threads) to uint8
+    [N, item_bytes]. Every stream must inflate to exactly ``item_bytes``;
+    failures zero-fill, or raise with ``strict=True``."""
+    lib, cid = load_codec(codec)
+    data, offsets, lengths = _streams(data, offsets, lengths)
+    n = len(offsets)
+    out = np.empty((n, item_bytes), dtype=np.uint8)
+    failures = n and lib.rxtpu_inflate_batch(
+        data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, n, out.ctypes.data,
+        item_bytes, cid, nthreads)
+    if strict and failures:
+        raise ValueError(f"{failures}/{n} records failed to decompress")
+    return out
+
+
+def deflate_filtered_batch(views: np.ndarray, level: int = 6, use_filter: bool = True,
+                           nthreads: int = 0, codec: str = "zlib") -> List[bytes]:
+    """Row-filter (optionally, each plane by the PNG filters) and compress
+    uint8 views [N, C, H, W]: one zlib/zstd stream per view, filter and codec
+    inside the pool. Raises on any failed compress (a truncated stream in a
+    pack would poison every later read). ``level`` follows the codec's scale
+    (zlib 1-9, zstd 1-22)."""
+    lib, cid = load_codec(codec)
+    n, c, h, w = views.shape
+    views = np.ascontiguousarray(views, dtype=np.uint8)
+    src_bytes = c * h * (w + 1) if use_filter else c * h * w
+    cap = src_bytes + src_bytes // 128 + 1024  # above both codecs' compress bounds
+    out = np.empty((n, cap), np.uint8)
+    out_lengths = np.zeros(n, np.int64)
+    failures = n and lib.rxtpu_deflate_filtered_batch(
+        views.ctypes.data, n, c, h, w, level, int(use_filter), out.ctypes.data, cap,
+        out_lengths.ctypes.data, cid, nthreads)
+    if failures:
+        raise ValueError(f"{failures}/{n} views failed to compress")
+    return [out[i, : out_lengths[i]].tobytes() for i in range(n)]
+
+
+def inflate_unfilter_batch(data: np.ndarray, offsets, lengths, c: int, h: int, w: int,
+                           nthreads: int = 0, strict: bool = False,
+                           codec: str = "zlib") -> np.ndarray:
+    """Inflate and unfilter N row-filtered streams to uint8 [N, C, H, W]: the
+    read side of the "png"-filtered pack, with ``inflate_batch``'s contract."""
+    lib, cid = load_codec(codec)
+    data, offsets, lengths = _streams(data, offsets, lengths)
+    n = len(offsets)
+    out = np.empty((n, c, h, w), dtype=np.uint8)
+    failures = n and lib.rxtpu_inflate_unfilter_batch(
+        data.ctypes.data, offsets.ctypes.data, lengths.ctypes.data, n, out.ctypes.data,
+        c, h, w, cid, nthreads)
+    if strict and failures:
+        raise ValueError(f"{failures}/{n} records failed to decompress")
+    return out
+
+
+# ---- plain versions, for the tests -------------------------------------------
+
+def filter_plane_py(plane: np.ndarray) -> np.ndarray:
+    """uint8 [H, W] -> filtered uint8 [H, W+1] (filter id + residual row), the
+    per-row least sum of absolute residuals over none/sub/up/avg/paeth."""
+    h, w = plane.shape
+    p = plane.astype(np.int32)
+    left = np.zeros_like(p)
+    left[:, 1:] = p[:, :-1]
+    up = np.zeros_like(p)
+    up[1:, :] = p[:-1, :]
+    upleft = np.zeros_like(p)
+    upleft[1:, 1:] = p[:-1, :-1]
+    pa = np.abs(up - upleft)
+    pb = np.abs(left - upleft)
+    pc = np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    cand = np.stack([p, p - left, p - up, p - ((left + up) >> 1), p - paeth]).astype(np.uint8)
+    cost = np.abs(cand.astype(np.int8).astype(np.int32)).sum(axis=2)  # [5, H]
+    choice = cost.argmin(axis=0)
+    out = np.empty((h, w + 1), np.uint8)
+    out[:, 0] = choice
+    out[:, 1:] = cand[choice, np.arange(h)]
+    return out
+
+
+def unfilter_plane_py(filt: np.ndarray) -> np.ndarray:
+    """Inverse of ``filter_plane_py``: uint8 [H, W+1] -> [H, W]. Raises
+    ``ValueError`` on a filter id above 4."""
+    h, w = filt.shape[0], filt.shape[1] - 1
+    out = np.empty((h, w), np.uint8)
+    for y in range(h):
+        ft = int(filt[y, 0])
+        row = filt[y, 1:].astype(np.int32)
+        above = out[y - 1].astype(np.int32) if y else np.zeros(w, np.int32)
+        if ft == 0:
+            cur = row
+        elif ft == 1:  # sub: a running mod-256 sum
+            cur = np.cumsum(row) & 0xFF
+        elif ft == 2:
+            cur = (row + above) & 0xFF
+        elif ft in (3, 4):  # avg and paeth carry the left neighbour
+            cur = np.empty(w, np.int32)
+            a = c = 0
+            for x in range(w):
+                b = int(above[x])
+                if ft == 3:
+                    a = (int(row[x]) + ((a + b) >> 1)) & 0xFF
+                else:
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                    a = (int(row[x]) + pred) & 0xFF
+                    c = b
+                cur[x] = a
+        else:
+            raise ValueError(f"corrupt filter id {ft} at row {y}")
+        out[y] = cur
+    return out
+
+
+def png_decode_py(buf: bytes) -> np.ndarray:
+    """Plain PNG reader: the chunks with each critical chunk's CRC
+    (``zlib.crc32``), IHDR (8-bit gray, no interlace), the IDAT data joined
+    through ``zlib.decompress`` and ``unfilter_plane_py``. uint8 [H, W];
+    raises ``ValueError`` on anything else."""
+    if buf[:8] != PNG_MAGIC:
+        raise ValueError("not a PNG signature")
+    pos, idat, size = 8, [], None
+    while True:
+        if pos + 12 > len(buf):
+            raise ValueError("truncated PNG: no IEND")
+        (clen,) = struct.unpack(">I", buf[pos:pos + 4])
+        kind, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + clen]
+        if pos + 12 + clen > len(buf):
+            raise ValueError(f"truncated {kind!r} chunk")
+        critical = not kind[0] & 0x20
+        if critical and zlib.crc32(kind + data) != struct.unpack(
+                ">I", buf[pos + 8 + clen:pos + 12 + clen])[0]:
+            raise ValueError(f"bad CRC in the {kind!r} chunk")
+        pos += 12 + clen
+        if size is None:
+            if kind != b"IHDR" or clen != 13:
+                raise ValueError("the first chunk is not IHDR")
+            w, h, depth, colour, method, filt, interlace = struct.unpack(">IIBBBBB", data)
+            if (depth, colour, interlace, method, filt) != (8, 0, 0, 0, 0):
+                raise ValueError(f"unsupported PNG: {_ihdr_text(buf[:33])}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+        elif critical:
+            raise ValueError(f"unexpected critical chunk {kind!r}")
+    h, w = size
+    try:
+        rows = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"IDAT does not inflate: {e}") from e
+    if len(rows) != h * (w + 1):
+        raise ValueError(f"IDAT inflates to {len(rows)} bytes, not {h * (w + 1)}")
+    return unfilter_plane_py(np.frombuffer(rows, np.uint8).reshape(h, w + 1))
 
 
 # launches on the card, counted by each wrapper where it calls nvJPEG

@@ -1,13 +1,16 @@
 """Host input pipeline (counterpart of ``ByteStore`` and ``Pipeline`` in
-``rxtpu/data/pipeline.py``), over a raw ``PackStore`` or a JPEG tree.
+``rxtpu/data/pipeline.py``), over a pack or a JPEG or PNG tree.
 
-Sources: a ``PackStore`` (decoded planes, a memcpy per view) or a
-``ByteStore`` over ``{img_dir}/{split}/{experiment}/Plate{p}/{well}_s{site}_w{ch}.jpeg``,
-either preloaded (every well's compressed bytes cached in RAM, decoded per
-batch by ``decode_batch``) or streaming (paths handed to ``decode_files``,
-which reads and decodes in the native pool), both strict: a corrupt or
-missing file raises. JPEG batches decode on ``device``: numpy planes from
-libjpeg on the CPU, a uint8 tensor on the card from nvJPEG.
+Sources: a ``PackStore`` (decoded planes: a memcpy per view of a raw pack,
+one inflate call of ``decoder_threads`` threads per batch of a compressed
+one) or a ``ByteStore`` over
+``{img_dir}/{split}/{experiment}/Plate{p}/{well}_s{site}_w{ch}.{ext}``
+(``ext`` "jpeg" or "png"), either preloaded (every well's compressed bytes
+cached in RAM, decoded per batch by ``decode_batch``) or streaming (paths
+handed to ``decode_files``, which reads and decodes in the native pool),
+both strict: a corrupt or missing file raises. Image batches decode for
+``device``: numpy planes on the CPU; on the card a uint8 tensor there, from
+nvJPEG for JPEGs and by one pinned copy of the host's planes for PNGs.
 
 - train / val: G=3 views ``[img, neg, pos]``, each with its own random site;
   with ``two_site=True`` G=6 as in test mode. Train shuffles each epoch with
@@ -43,7 +46,7 @@ from rxtpu_torch.data.stats import Stats, stats_table
 
 
 class ByteStore:
-    """A split's JPEG files: preloaded compressed bytes or paths to stream."""
+    """A split's JPEG or PNG files: preloaded file bytes or paths to stream."""
 
     channels = (1, 2, 3, 4, 5, 6)
 
@@ -104,8 +107,9 @@ class Pipeline:
     """Batches of one split's samples in ``mode`` train, val or test.
 
     With a ``ByteStore``, ``src_size`` is the planes' side (the pack knows its
-    own), ``decoder_threads`` the decode pool's threads (0: every core) and
-    ``device`` where JPEGs decode (``images`` is then a tensor there).
+    own), ``decoder_threads`` the decode or inflate pool's threads (0: every
+    core) and ``device`` where images decode (``images`` is then a tensor
+    there; a pack's batches stay numpy until ``device_prefetch``).
     """
 
     def __init__(self, index: MetadataIndex, store: Union[PackStore, ByteStore],
@@ -174,7 +178,7 @@ class Pipeline:
             exp_ids[k] = self._exp_index[r.experiment]
             valid[k] = 1.0 if i < n_real else 0.0
         if isinstance(self.store, PackStore):
-            images = self.store.get_decoded_batch(keys)
+            images = self.store.get_decoded_batch(keys, nthreads=self.decoder_threads)
         elif self.store.preloaded:
             bufs = [b for rec, site in keys for b in self.store.get(rec, site)]
             images = decode_batch(bufs, s, s, nthreads=self.decoder_threads, strict=True,
@@ -250,7 +254,7 @@ class Pipeline:
 def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device):
     """Yield batches as tensors on ``device``, one batch ahead of consumption.
 
-    Tensors (planes that nvJPEG decoded on the card) move only if they lie
+    Tensors (planes already decoded for the card) move only if they lie
     elsewhere. On a CUDA device the arrays go through pinned host memory and a
     ``non_blocking`` copy on the current stream, queued before batch k is
     yielded: the host does not wait for the transfer, but on the card batch

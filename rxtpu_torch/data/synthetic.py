@@ -34,7 +34,9 @@ Views are random uint8 [6, img_size, img_size] planes.
 
 ``write_jpeg_tree`` writes a fixture's packed views as the JPEG tree that
 rxtpu's default run reads, ``{split}/{experiment}/Plate{p}/{well}_s{site}_w{ch}.jpeg``,
-through the port's encoder.
+through the port's encoder; ``write_png_tree`` writes them as the lossless
+8-bit grayscale PNG tree of the Kaggle release (``.png``), through
+``png_bytes``, a minimal PNG writer over the port's row filter and zlib.
 
 ``randomize_`` gives a model random weights from a seeded
 ``torch.Generator``, BN affines and running stats included.
@@ -45,6 +47,8 @@ from __future__ import annotations
 import csv
 import json
 import os
+import struct
+import zlib
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -52,7 +56,7 @@ import torch
 from torch import nn
 
 from rxtpu_torch.config import NB_CHANNELS
-from rxtpu_torch.data.decode import encode_batch_jpeg
+from rxtpu_torch.data.decode import PNG_MAGIC, deflate_filtered_batch, encode_batch_jpeg
 from rxtpu_torch.data.pack import write_raw_pack
 from rxtpu_torch.data.records import NEG_CONTROL_WELL, build_plate_groups, image_path
 from rxtpu_torch.data.stats import save_stats
@@ -225,10 +229,11 @@ def make_train_fixture(root: str, nb_classes: int = 1108, n_experiments: int = 3
     }
 
 
-def write_jpeg_tree(pack_dir: str, data_dir: str, quality: int = 95, device="cpu") -> int:
-    """Write every view of ``{pack_dir}/{train,test}.rxpack`` under ``data_dir``
-    as one grayscale JPEG per channel plane at ``quality``: libjpeg on the
-    CPU, nvJPEG on a CUDA ``device``. Returns the number of files written."""
+def _write_tree(pack_dir: str, data_dir: str, ext: str, encode) -> int:
+    """Write each plane of the views of ``{pack_dir}/{train,test}.rxpack`` as
+    the ``.{ext}`` file of its (split, key, channel) under ``data_dir``,
+    ``encode(uint8 [n, H, W]) -> [bytes]`` taking 288 planes (48 views) at a
+    time. Returns the number of files written."""
     n_files = 0
     for split in ("train", "test"):
         pack = os.path.join(pack_dir, f"{split}.rxpack")
@@ -239,19 +244,55 @@ def write_jpeg_tree(pack_dir: str, data_dir: str, quality: int = 95, device="cpu
         c, h, w = meta["channels"], meta["h"], meta["w"]
         views = np.memmap(pack, dtype=np.uint8, mode="r").reshape(-1, c, h, w)
         keys = sorted(meta["entries"].items(), key=lambda kv: kv[1])
-        for i in range(0, len(keys), 48):  # 288 planes per encode call
+        for i in range(0, len(keys), 48):
             chunk = keys[i:i + 48]
-            planes = np.stack([views[ordinal] for _, ordinal in chunk]).reshape(-1, h, w)
-            bufs = encode_batch_jpeg(torch.from_numpy(planes).to(device), quality)
+            bufs = encode(np.stack([views[o] for _, o in chunk]).reshape(-1, h, w))
             for j, (key, _) in enumerate(chunk):
                 exp, plate, well, site = key.split("|")
                 for ch in range(c):
-                    path = image_path(data_dir, split, exp, int(plate), well, int(site), ch + 1)
+                    path = image_path(data_dir, split, exp, int(plate), well, int(site), ch + 1,
+                                      ext)
                     os.makedirs(os.path.dirname(path), exist_ok=True)
                     with open(path, "wb") as f:
                         f.write(bufs[j * c + ch])
                     n_files += 1
     return n_files
+
+
+def write_jpeg_tree(pack_dir: str, data_dir: str, quality: int = 95, device="cpu") -> int:
+    """Write every view of ``{pack_dir}/{train,test}.rxpack`` under ``data_dir``
+    as one grayscale JPEG per channel plane at ``quality``: libjpeg on the
+    CPU, nvJPEG on a CUDA ``device``. Returns the number of files written."""
+    return _write_tree(pack_dir, data_dir, "jpeg",
+                       lambda planes: encode_batch_jpeg(torch.from_numpy(planes).to(device),
+                                                        quality))
+
+
+def png_bytes(stream: bytes, height: int, width: int) -> bytes:
+    """A PNG file of an 8-bit grayscale, non-interlaced image from ``stream``,
+    the zlib stream of its ``height`` filtered rows of ``1 + width`` bytes:
+    signature, IHDR, one IDAT, IEND, each chunk's CRC by ``zlib.crc32``."""
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 0, 0, 0, 0)
+    return PNG_MAGIC + chunk(b"IHDR", ihdr) + chunk(b"IDAT", stream) + chunk(b"IEND", b"")
+
+
+def write_png_tree(pack_dir: str, data_dir: str, level: int = 6, nthreads: int = 0) -> int:
+    """Write every view of ``{pack_dir}/{train,test}.rxpack`` under ``data_dir``
+    as one 8-bit grayscale PNG per channel plane (``.png``): each plane's rows
+    filtered and zlib-compressed at ``level`` by ``deflate_filtered_batch``
+    (the pack's "png" row filter is PNG's), wrapped by ``png_bytes``. The
+    planes read back bit for bit. Returns the number of files written."""
+    def encode(planes):
+        n, h, w = planes.shape
+        streams = deflate_filtered_batch(planes.reshape(n, 1, h, w), level=level,
+                                         use_filter=True, nthreads=nthreads, codec="zlib")
+        return [png_bytes(s, h, w) for s in streams]
+
+    return _write_tree(pack_dir, data_dir, "png", encode)
 
 
 @torch.no_grad()

@@ -4,10 +4,12 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
 build takes seconds. Each ``csrc/<name>.cpp`` is host code and compiles
 with ``g++`` the same way (``jpeg_host.cpp``, libjpeg, the CPU's JPEG
-decoder). Libraries go to ``rxtpu_torch/build/`` (git-ignored), named by a
-hash of the source and flags, so an edited source rebuilds. ``build_all``
-starts one compiler per source, all together; by default it builds the
-CUDA sources, which are what the card's host needs.
+decoder; ``inflate_host.cpp``, the PNG reader and the packs' codecs, which
+binds zlib and zstd by ``dlopen``). Libraries go to ``rxtpu_torch/build/``
+(git-ignored), named by a hash of the source and flags, so an edited source
+rebuilds. ``build_all`` starts one compiler per source, all together; by
+default it builds what the card's host needs: the CUDA sources and
+``inflate_host.cpp`` (that host has no libjpeg for ``jpeg_host.cpp``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ NVCC_FLAGS = [
 ]
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # libraries a source links against, after the source on the command line
-LINK = {"jpeg_host": ["-ljpeg", "-lpthread"], "jpeg_nv": ["-lnvjpeg"]}
+LINK = {"jpeg_host": ["-ljpeg", "-lpthread"], "jpeg_nv": ["-lnvjpeg"],
+        "inflate_host": ["-ldl", "-lpthread"]}
+CARD_HOST = ["inflate_host"]  # host sources that the card's machine builds too
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -99,10 +103,10 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path) -> str:
 
 def build_all(names: List[str] = None) -> Dict[str, Tuple[float, str]]:
     """Build every source that has no library yet (by default every CUDA
-    source), one compiler each, all at once. Returns ``{name: (seconds,
-    compiler output)}`` for the ones built."""
+    source and ``CARD_HOST``), one compiler each, all at once. Returns
+    ``{name: (seconds, compiler output)}`` for the ones built."""
     if names is None:
-        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+        names = sorted(p.stem for p in CSRC.glob("*.cu")) + CARD_HOST
     t0 = time.perf_counter()
     with _lock:
         started = {n: _start(n) for n in names if not library_path(n).exists()}

@@ -1,14 +1,26 @@
-"""Offline data tools of the port (counterpart of ``rxtpu/tools.py``): the
-per-experiment stats pass.
+"""Offline data tools of the port (counterpart of ``rxtpu/tools.py``), with
+no JAX and no cv2. Every subcommand takes ``--device`` (``cuda``, the
+default, or ``cpu``): JPEGs decode and encode with nvJPEG on the card,
+libjpeg on the CPU; PNGs and the packs' codecs are host work either way.
 
-``python -m rxtpu_torch.tools stats --data data [--out stats_experiments.json]``
-    walks ``data/{train,test}/{experiment}/Plate*/*.jpeg``, decodes in
-    batches of 256 with the port's JPEG decoder (``nthreads`` threads; on
-    the card with nvJPEG unless ``--device cpu``) and accumulates each
+``python -m rxtpu_torch.tools stats --data data [--out stats_experiments.json] [--ext png]``
+    walks ``data/{train,test}/{experiment}/Plate*/*.{ext}``, decodes in
+    batches of 256 (``--threads`` threads) and accumulates each
     (experiment, channel)'s mean and std in one streaming pass;
     ``--verify`` prints the re-normalized moments (mean ~0, std ~1).
 
-``pack``, ``png2jpeg`` and ``iobench`` are not ported yet.
+``python -m rxtpu_torch.tools pack --data data --out packs [--ext png] [--compress zstd --filter png]``
+    decodes every (well, site) of each split once into an rxpack
+    (``data/pack.py`` ``write_pack``, rxtpu's format and bytes): raw, or
+    one zlib or zstd stream per view (levels 6 and 19 unless
+    ``--compress-level``), optionally row-filtered first.
+
+``python -m rxtpu_torch.tools png2jpeg --data data [--quality 95]``
+    converts every ``.png`` under the data dir to a grayscale JPEG beside it.
+
+``python -m rxtpu_torch.tools iobench --data data [--ext png]``
+    the host's decode rate of one split's files, and the input stall that
+    rate implies against the card's train rate (``--train-views-per-s``).
 """
 
 from __future__ import annotations
@@ -16,12 +28,13 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import time
 from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from rxtpu_torch.data.decode import decode_files, jpeg_size
+from rxtpu_torch.data.decode import decode_files, encode_batch_jpeg, image_size, png_size
 from rxtpu_torch.data.stats import (
     NB_CHANNELS, channel_from_path, compute_stats_streaming, save_stats, verify_stats,
 )
@@ -40,9 +53,15 @@ def experiment_paths(data_dir: str, experiment: str, ext: str) -> List[str]:
     return sorted(glob.glob(os.path.join(data_dir, "*", experiment, "*", f"*.{ext}")))
 
 
+# The port's train rate on the card: the bf16 B=16 ResNet-50 train step with
+# the batch on the card, 395.9 views/s on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 5, chip_smoke.py phase 7).
+H100_TRAIN_VIEWS_PER_S = 395.9
+
+
 def _probe_size(path: str, device="cpu") -> int:
-    """The side of the square images, from the first file's JPEG header."""
-    h, w = jpeg_size(path, device)
+    """The side of the square images, from the first file's header."""
+    h, w = image_size(path, device)
     if h != w:
         raise ValueError(f"{path}: {h}x{w} image, expected a square one")
     return h
@@ -69,8 +88,8 @@ def _stats_batches(data_dir: str, experiments: Sequence[str], ext: str, size: in
 
 def run_stats(data_dir: str, out_path: str, ext: str = "jpeg", batch: int = 256,
               verify: bool = False, nthreads: int = 0, device="cpu") -> Dict:
-    """Compute the stats artifact of ``data_dir``'s JPEG tree, write it to
-    ``out_path`` (JSON) and return it."""
+    """Compute the stats artifact of ``data_dir``'s JPEG or PNG tree, write it
+    to ``out_path`` (JSON) and return it."""
     experiments = list_experiments(data_dir)
     if not experiments:
         raise SystemExit(f"no experiments found under {data_dir}/{{train,test}}/")
@@ -100,6 +119,96 @@ def run_stats(data_dir: str, out_path: str, ext: str = "jpeg", batch: int = 256,
     return stats
 
 
+def run_png2jpeg(data_dir: str, quality: int = 95, batch: int = 256, nthreads: int = 0,
+                 device="cpu") -> int:
+    """Write a grayscale JPEG at ``quality`` beside every ``.png`` under
+    ``data_dir`` (rxtpu's bytes on the CPU); returns the number converted.
+    Every PNG must have the first one's size: a stray PNG of another size
+    under the data dir stops the run, naming it, before its batch is
+    written."""
+    paths = sorted(glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True))
+    n_done = 0
+    expect = None
+    for i in range(0, len(paths), batch):
+        chunk = paths[i:i + batch]
+        for p in chunk:
+            try:
+                size = png_size(p)
+            except (OSError, ValueError):
+                raise SystemExit(f"png2jpeg: cannot read {p}") from None
+            if expect is None:
+                expect = size
+            elif size != expect:
+                raise SystemExit(f"png2jpeg: {p} has size {size}, expected {expect} "
+                                 "(non-dataset png under the data dir?)")
+        try:
+            planes = decode_files(chunk, *expect, nthreads=nthreads, strict=True,
+                                  device=device)
+        except ValueError:
+            for p in chunk:  # name the first file that does not decode
+                try:
+                    decode_files([p], *expect, nthreads=1, strict=True)
+                except ValueError as e:
+                    raise SystemExit(f"png2jpeg: cannot read {p}: {e}") from None
+            raise
+        bufs = encode_batch_jpeg(planes, quality=quality, nthreads=nthreads)
+        for p, buf in zip(chunk, bufs):
+            with open(p.rsplit(".", 1)[0] + ".jpeg", "wb") as f:
+                f.write(buf)
+            n_done += 1
+    print(f"converted {n_done} png -> jpeg (quality {quality})")
+    return n_done
+
+
+def run_iobench(data_dir: str, ext: str = "jpeg", batch: int = 288, nthreads: int = 0,
+                seconds: float = 5.0, train_views_per_s: float = H100_TRAIN_VIEWS_PER_S,
+                device="cpu") -> Dict:
+    """The decode rate of the first experiments' files (at least ``batch``
+    x 4 of them), ``batch`` files per call for ``seconds`` after one warm-up
+    call, on ``device``.
+
+    A view is 6 files, so the supply is ``views_per_s_supported = rate / 6``;
+    against the card's consumption ``train_views_per_s`` (default the port's
+    measured H100 train step, ``H100_TRAIN_VIEWS_PER_S``) the decode-bound
+    input stall is ``max(0, 1 - supply / demand)``.
+    """
+    exps = list_experiments(data_dir)
+    paths: List[str] = []
+    for e in exps:
+        paths += experiment_paths(data_dir, e, ext)
+        if len(paths) >= batch * 4:
+            break
+    if not paths:
+        raise SystemExit(f"no .{ext} files under {data_dir}")
+    device = torch.device(device)
+    size = _probe_size(paths[0], device)
+
+    def decode(chunk):
+        decode_files(chunk, size, size, nthreads=nthreads, strict=True, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    decode(paths[:batch])
+    n_done, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        decode([paths[(n_done + i) % len(paths)] for i in range(batch)])
+        n_done += batch
+    rate = n_done / (time.perf_counter() - t0)
+    supply = rate / 6.0
+    out = {
+        "decode_images_per_s": round(rate, 1),
+        "image_size": size,
+        "threads": nthreads or os.cpu_count(),
+        "views_per_s_supported": round(supply, 1),
+        "projected_decode_stall_pct": round(
+            100.0 * max(0.0, 1.0 - supply / train_views_per_s), 1),
+        "train_views_per_s": train_views_per_s,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    print(out)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="rxtpu_torch.tools")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -110,12 +219,66 @@ def main(argv=None) -> None:
     sp.add_argument("--batch", type=int, default=256)
     sp.add_argument("--threads", type=int, default=0)
     sp.add_argument("--verify", action="store_true")
-    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    pk = sub.add_parser("pack", help="write decode-free rxpack dataset files")
+    pk.add_argument("--data", default="data")
+    pk.add_argument("--out", default="packs")
+    pk.add_argument("--ext", default="jpeg")
+    pk.add_argument("--threads", type=int, default=0)
+    pk.add_argument("--splits", default="train,test")
+    pk.add_argument("--compress", default="none", choices=["none", "zlib", "zstd"],
+                    help="lossless per-view compression: a smaller pack for "
+                         "storage-bandwidth-bound hosts; readers decompress in the "
+                         "native pool (zstd faster than zlib)")
+    pk.add_argument("--compress-level", type=int, default=None,
+                    help="codec scale: zlib 1-9 (default 6), zstd 1-22 (default 19)")
+    pk.add_argument("--filter", default="none", choices=["none", "png"],
+                    help="png: per-row adaptive pre-filter before the codec")
+
+    ib = sub.add_parser("iobench", help="host decode-throughput benchmark")
+    ib.add_argument("--data", default="data")
+    ib.add_argument("--ext", default="jpeg")
+    ib.add_argument("--batch", type=int, default=288)
+    ib.add_argument("--threads", type=int, default=0)
+    ib.add_argument("--seconds", type=float, default=5.0)
+    ib.add_argument("--train-views-per-s", type=float, default=H100_TRAIN_VIEWS_PER_S,
+                    help="the card's train rate the decode must supply (default: the "
+                         "port's measured rate on an NVIDIA H100 80GB HBM3 at 700 W)")
+
+    cp = sub.add_parser("png2jpeg", help="batch convert PNGs to grayscale JPEG")
+    cp.add_argument("--data", default="data")
+    cp.add_argument("--quality", type=int, default=95)
+    cp.add_argument("--batch", type=int, default=256)
+    cp.add_argument("--threads", type=int, default=0)
+    for p in (sp, pk, ib, cp):
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     from rxtpu_torch.config import resolve_device
 
-    run_stats(args.data, args.out, args.ext, args.batch, args.verify, args.threads,
-              resolve_device(args.device))
+    device = resolve_device(args.device)
+    if args.cmd == "stats":
+        run_stats(args.data, args.out, args.ext, args.batch, args.verify, args.threads, device)
+    elif args.cmd == "pack":
+        from rxtpu_torch.data.pack import write_pack
+        from rxtpu_torch.data.records import load_metadata, read_metadata_csvs
+
+        level = args.compress_level
+        if level is None:
+            level = 19 if args.compress == "zstd" else 6
+        for split in args.splits.split(","):
+            rows, controls = read_metadata_csvs(os.path.join(args.data, "metadata"), split)
+            path = write_pack(load_metadata(rows, controls, split), args.data, args.out,
+                              ext=args.ext, decoder_threads=args.threads, verbose=True,
+                              compress=None if args.compress == "none" else args.compress,
+                              compress_level=level,
+                              filter=None if args.filter == "none" else args.filter,
+                              device=device)
+            print(f"wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB)")
+    elif args.cmd == "iobench":
+        run_iobench(args.data, args.ext, args.batch, args.threads, args.seconds,
+                    args.train_views_per_s, device)
+    else:
+        run_png2jpeg(args.data, args.quality, args.batch, args.threads, device)
 
 
 if __name__ == "__main__":

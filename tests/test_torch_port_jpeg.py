@@ -125,20 +125,24 @@ def test_strict_raises_and_loose_zero_fills(tmp_path):
 
 
 def test_png_raises_where_rxtpu_falls_back_to_cv2(tmp_path):
-    """Departure from rxtpu: rxtpu decodes a PNG buffer or file through cv2;
-    the port has no cv2 fallback and raises NotImplementedError (PNG decode is
-    not ported yet), in decode_batch, decode_files and jpeg_size."""
+    """Departure from rxtpu: rxtpu decodes any PNG through cv2, converting a
+    colour one to gray; the port reads 8-bit grayscale PNGs (RxRx1's kind)
+    bit-equal to cv2 and raises on other kinds, in decode_batch and
+    decode_files, with no cv2 fallback. jpeg_size reads JPEG headers only."""
     import cv2
 
     plane = _planes(1)[0]
     png = cv2.imencode(".png", plane)[1].tobytes()
-    np.testing.assert_array_equal(rx_decode_batch([png], SRC, SRC)[0], plane)
-    with pytest.raises(NotImplementedError, match="PNG decode is not ported"):
-        decode_batch([png], SRC, SRC)
+    np.testing.assert_array_equal(decode_batch([png], SRC, SRC)[0],
+                                  rx_decode_batch([png], SRC, SRC)[0])
+    colour = cv2.imencode(".png", np.stack([plane] * 3, axis=-1))[1].tobytes()
+    np.testing.assert_array_equal(rx_decode_batch([colour], SRC, SRC)[0], plane)
+    with pytest.raises(ValueError, match="colour type 2.*8-bit grayscale"):
+        decode_batch([colour], SRC, SRC)
     path = str(tmp_path / "x_s1_w1.png")
     with open(path, "wb") as f:
-        f.write(png)
-    with pytest.raises(NotImplementedError, match="PNG decode is not ported"):
+        f.write(colour)
+    with pytest.raises(ValueError, match="x_s1_w1.png.*colour type 2"):
         decode_files([path], SRC, SRC)
     with pytest.raises(NotImplementedError):
         jpeg_size(path)
@@ -298,10 +302,13 @@ def test_jpeg_tree_pipeline_equals_pack_of_its_planes(tmp_path):
 
 
 def test_cli_refuses_png_without_pack():
-    args = port_cli.build_argparser().parse_args(["--image-ext", "png", "--device", "cpu"])
-    assert "png without --pack" in port_cli._not_ported(args)
-    args = port_cli.build_argparser().parse_args(["--device", "cpu"])
-    assert port_cli._not_ported(args) is None
+    """The CLI refuses no image source: PNG input runs with and without
+    ``--pack`` (the PNG reader, ``tests/test_torch_port_png_pack.py``)."""
+    parse = port_cli.build_argparser().parse_args
+    for argv in (["--image-ext", "png"], ["--image-ext", "png", "--pack", "packs"], []):
+        assert port_cli._not_ported(parse(argv + ["--device", "cpu"])) is None
+    assert "--head arcface" in port_cli._not_ported(parse(["--head", "arcface",
+                                                             "--image-ext", "png"]))
 
 
 def test_nvjpeg_reference_is_rxtpu_decode():
