@@ -34,7 +34,12 @@ Phases, each ending the run with a non-zero exit when it fails:
    bit-equal to the BN3 backward of c3 as K6.4 computes it, K6.3's sums
    bit-equal to those of K6.4's c3 and K6.1's projection sums to those of
    cp as K6.4's residual launch computes it, both taken in the order of the
-   pipelined mainloop's sums epilogue;
+   pipelined mainloop's sums epilogue; K8 (int8_conv) at ResNet-50's conv
+   kinds (the stem 7x7/2 from 6 channels at 512^2, 1x1/1, 3x3/1, 3x3/2, the
+   1x1/2 projection, 2-4 views) and three ragged shapes, with and without
+   ReLU and an int8 or float residual, int8, bf16 and f32 outputs: bit-equal
+   to the plain version (the exact float64 sums on the card, cuDNN off),
+   two launches bit-equal, and inputs on exact .5 ties of the requantize;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -81,6 +86,15 @@ Phases, each ending the run with a non-zero exit when it fails:
    submission; the test phase from the zlib+png pack and from the raw pack
    writes the same bytes; (d) ``png2jpeg`` on a copy of the tree: one JPEG
    per PNG, each decoded by nvJPEG;
+4e. ``--quantize int8`` through ``rxtpu_torch.cli.main`` on phase 4's fixture
+   and checkpoint: K1 once per test and calibration batch (bf16 views; the
+   stem quantizes them), K8 53 times per test batch, a valid plate-leak
+   submission;
+4f. the int8 predict step on one full-width batch, calibrated on it: on
+   the kernels (K1, K8) against the plain versions on the card, the
+   backbone's bf16 features and the probabilities bit-equal; against the
+   bf16 ``Predictor``, top-1 agreement and the largest probability gap
+   (under 0.08); once without transforms, K1 writing int8 views;
 5. the card against the CPU: f32 predict logits on one full-width batch, and
    one f32 train step (loss, updated parameters and BN statistics, momentum
    buffers) against the same step in f64, with the CPU's f32 step beside it;
@@ -113,11 +127,17 @@ Phases, each ending the run with a non-zero exit when it fails:
    threads); for uniform and microscopy-like content, a 288-plane batch of
    PNGs decoded onto the card and each codec's inflate of 48 views at 1, 4
    and nproc threads, and the train loop's step time and input stall from
-   the PNG tree, from zlib+png and zstd+png packs and from the raw pack.
+   the PNG tree, from zlib+png and zstd+png packs and from the raw pack; the
+   int8 predict step (both views) beside the bf16 one (ms, views/s, memory,
+   a profile), K8 at each of the forward's shapes beside its bound, its
+   plain version, ``torch._int_mm`` (1x1 stride 1) and cuDNN's bf16 conv,
+   and the NHWC permute of the stem's input.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
 phase 2's K6/K7 checks and the timing of every body's launches, device
 time and host time, per block shape and per train step.
+``python3 chip_smoke.py --int8`` builds the kernels and runs only K8's
+checks, phase 4f on a seeded random ResNet-50 and the int8 timings.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -300,6 +320,40 @@ def k5_work(n, crop):
     pool = (conv - 1) // 2 + 1
     moved = n * 6 * crop * crop + 2 * 4 * n * 6 + 64 * 294 * 2 + 64 * 4 + n * 64 * pool * pool * 2
     return moved, 2 * n * 64 * conv * conv * 294
+
+
+def device_profile(fn, steps, label, ref_ms):
+    """Device time per step of ``fn`` by kernel (torch.profiler), its share of
+    ``ref_ms``, and the host's calls by their own time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: an aten op's own device total repeats its kernels'
+    averages = prof.key_averages()
+    kernels = [e for e in averages
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        fail("the profiler recorded no device time")
+    device_us = sum(e.self_device_time_total for e in kernels)
+    print(f"profile of {steps} {label}: {device_us / 1e3 / steps:.3f} ms device time "
+          f"per step, {100 * device_us / 1e3 / steps / ref_ms:.1f}% of the step's "
+          f"{ref_ms:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"  {100 * e.self_device_time_total / device_us:5.1f}%  "
+              f"{e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
+              f"x{e.count // steps:<4d} {e.key[:110]}")
+    # where the host's time goes (under the profiler, which slows the host)
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    print("  host, by self time per step: " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / steps:.3f} ms x{e.count // steps}"
+        for e in host))
+    return kernels, device_us
 
 
 def read_jsonl(path):
@@ -1672,6 +1726,386 @@ def png_timings(dev, cli, pp, card, codecs):
                   f"{r['perf/input_stall_pct']:.2f}; {card}")
 
 
+# ---------------------------------------------------------------------------
+# K8, the int8 conv, and the --quantize int8 test phase (phases 2, 4e, 4f and
+# their timings in phase 7)
+# ---------------------------------------------------------------------------
+INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense (a multiply-add is two operations)
+K8_REPLACES = "rxtpu/models/quant.py:167"  # the XLA int8 conv (lax.conv_general_dilated)
+K8_LAUNCHES = 53  # per ResNet-50 forward: the stem, 16 blocks x 3 convs, 4 projections
+# (label, N, H, W, Cin, Cout, kernel, stride, padding): ResNet-50's conv kinds at
+# their widths and the test size's planes, few views (the plain version's conv
+# runs in float64), then ragged shapes: odd H and W, M and Cout off the 128 x 64
+# tile, K = 294 off the 64-byte stage
+K8_CHECKS = (
+    ("stem 7x7/2", 2, 512, 512, 6, 64, 7, 2, 3),
+    ("1x1/1 stage1 Conv_2", 2, 128, 128, 64, 256, 1, 1, 0),
+    ("3x3/1 stage1", 2, 128, 128, 64, 64, 3, 1, 1),
+    ("3x3/2 stage2", 2, 128, 128, 128, 128, 3, 2, 1),
+    ("1x1/2 stage2 proj", 2, 128, 128, 256, 512, 1, 2, 0),
+    ("1x1/1 stage4 Conv_2", 4, 16, 16, 512, 2048, 1, 1, 0),
+    ("ragged 3x3/1", 3, 7, 5, 96, 40, 3, 1, 1),
+    ("ragged 1x1/1", 1, 9, 11, 32, 72, 1, 1, 0),
+    ("ragged stem", 1, 513, 511, 6, 64, 7, 2, 3),
+)
+# (label, requantize, relu, residual): the forward's epilogues and the rest
+K8_EPILOGUES = (("int8 relu", True, True, None), ("int8 relu + int8 res", True, True, "int8"),
+                ("int8", True, False, None), ("bf16 relu + int8 res", False, True, "int8"),
+                ("bf16", False, False, None), ("f32 relu + f32 res", False, True, "float"))
+
+
+def k8_operands(case, seed, dev):
+    """int8 input and weights over the whole range, scales that put the
+    outputs at O(1) (so requantize clips some and rounds the rest), N(0,1)
+    biases, an int8 and a float residual."""
+    import torch
+
+    _, n, h, w, cin, cout, k, s, p = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+
+    in_scale = torch.tensor(1.0 / (127.0 * math.sqrt(k * k * cin)), device=dev)
+    w_scale = (torch.rand(cout, device=dev, generator=gen) + 0.5) / 127.0
+    return dict(x=i8(n, h, w, cin), w=i8(cout, k * k * cin), scale=w_scale * in_scale,
+                bias=torch.randn(cout, device=dev, generator=gen),
+                rq=i8(n, ho, wo, cout), rs=torch.tensor(0.9 / 127.0, device=dev),
+                rf=torch.randn(n, ho, wo, cout, device=dev, generator=gen),
+                inv=torch.tensor(127.0 / 1.3, device=dev))
+
+
+def k8_kwargs(ops, requant, relu, res):
+    import torch
+
+    return dict(residual={None: None, "int8": ops["rq"], "float": ops["rf"]}[res],
+                residual_scale=ops["rs"] if res == "int8" else None, relu=relu,
+                inv_out_scale=ops["inv"] if requant else None,
+                out_dtype=torch.float32 if res == "float" else torch.bfloat16)
+
+
+def k8_phase2(dev):
+    """Phase 2's K8: every shape and epilogue bit-equal to the plain version
+    (the exact float64 sums and the same epilogue in torch ops), two launches
+    bit-equal, and inputs built on exact .5 ties of the requantize. Returns
+    max |kernel - plain|."""
+    import torch
+    from rxtpu_torch.ops import int8_conv as k8
+
+    phase("2 K8 int8_conv against its plain version (bit equality; the plain conv in float64 "
+          "on the card)")
+    worst = 0.0
+    for seed, case in enumerate(K8_CHECKS):
+        label, n, h, w, cin, cout, k, s, p = case
+        ops = k8_operands(case, seed, dev)
+        acc = k8.int8_conv_sums(ops["x"], ops["w"], k, s, p)  # the plain version's sums
+        results = []
+        for ep_label, requant, relu, res in K8_EPILOGUES:
+            kw = k8_kwargs(ops, requant, relu, res)
+            out = k8.int8_conv(ops["x"], ops["w"], ops["scale"], ops["bias"], k, s, p, **kw)
+            again = k8.int8_conv(ops["x"], ops["w"], ops["scale"], ops["bias"], k, s, p, **kw)
+            ref = k8.epilogue(acc, ops["scale"], ops["bias"], kw["residual"],
+                              kw["residual_scale"], relu, kw["inv_out_scale"], kw["out_dtype"])
+            torch.cuda.synchronize()
+            bad, err = bitwise_diff(out, ref)
+            rep, _ = bitwise_diff(out, again)
+            worst = max(worst, err)
+            results.append(f"{ep_label} {bad}/{rep}")
+            if bad or rep:
+                fail(f"K8 {label} [{n},{h},{w},{cin}] -> {cout} {k}x{k}/{s}, {ep_label}: "
+                     f"{bad} outputs differ from the plain version (max {err}), {rep} between "
+                     f"two launches")
+        print(f"{label} [{n},{h},{w},{cin}] -> [{n},{acc.shape[1]},{acc.shape[2]},{cout}] "
+              f"{k}x{k}/{s} pad {p}: mismatches (plain/repeat) {', '.join(results)}; "
+              f"max|sum| {int(acc.abs().max())}")
+        del ops, acc
+    # .5 ties: small operands, scale 1, bias +-0.5 and out scale 1, so every
+    # output o = sum +- 0.5 is exact and rounds half to even
+    case = ("ties 3x3/1", 2, 64, 64, 64, 64, 3, 1, 1)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    x = torch.randint(-2, 3, (2, 64, 64, 64), dtype=torch.int8, device=dev, generator=gen)
+    wt = torch.randint(-1, 2, (64, 9 * 64), dtype=torch.int8, device=dev, generator=gen)
+    one = torch.ones(64, device=dev)
+    half = torch.where(torch.arange(64, device=dev) % 2 == 0, 0.5, -0.5)
+    inv = torch.tensor(1.0, device=dev)
+    out = k8.int8_conv(x, wt, one, half, 3, 1, 1, inv_out_scale=inv)
+    acc = k8.int8_conv_sums(x, wt, 3, 1, 1)
+    ref = k8.epilogue(acc, one, half, inv_out_scale=inv)
+    torch.cuda.synchronize()
+    bad, err = bitwise_diff(out, ref)
+    v = acc.double() + half.double()
+    ties = int((v.abs() < 127).sum())
+    even = bool((ref[v.abs() < 127].double() % 2 == 0).all())
+    print(f"{case[0]}: {ties} of {v.numel()} outputs on exact .5 ties inside the clip, every "
+          f"plain result even: {even}; mismatches {bad}")
+    if bad or ties < v.numel() // 2 or not even:
+        fail("K8 rounds .5 ties otherwise than its plain version")
+    return max(worst, err)
+
+
+def int8_batch(dev, seed):
+    """One full-width test batch [16, 6, 6, 512^2] and its per-sample mean/std."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"images": torch.randint(0, 256, (B, 6, 6, SRC, SRC), dtype=torch.uint8,
+                                    device=dev, generator=gen),
+            "mean": torch.rand(B, 6, device=dev, generator=gen) * 0.4 + 0.1,
+            "std": torch.rand(B, 6, device=dev, generator=gen) * 0.2 + 0.05}
+
+
+def check_submission(path, fx, n_classes=1108):
+    """A submission's ids follow the test rows, its sirnas are in range, one
+    per well of a plate, each on its well's plate. Returns the sirnas."""
+    with open(path, newline="") as f:
+        sub = list(csv.DictReader(f))
+    if [r["id_code"] for r in sub] != [r["id_code"] for r in fx["test_rows"]]:
+        fail(f"{path}: rows do not match the test ids")
+    sirnas = [int(r["sirna"]) for r in sub]
+    if not all(0 <= s < n_classes for s in sirnas):
+        fail(f"{path}: sirna out of [0, {n_classes})")
+    by_plate = {}
+    for row, s in zip(fx["test_rows"], sirnas):
+        if fx["plate_groups"][s, 0] != row["plate"]:
+            fail(f"{path}: {row['id_code']}: sirna {s} is not on plate {row['plate']}")
+        by_plate.setdefault(row["plate"], []).append(s)
+    for plate, ss in by_plate.items():
+        if len(set(ss)) != len(ss):
+            fail(f"{path}: plate {plate}: assignment is not one-to-one")
+    print(f"submission {os.path.basename(path)}: {len(sub)} rows, plates {sorted(by_plate)}, "
+          f"one-to-one per plate, plate leak respected")
+    return sirnas
+
+
+def int8_cli_phase(cli, test_dir, argv, fx, n_batches):
+    """Phase 4e: ``--quantize int8`` through ``rxtpu_torch.cli.main`` on phase 4's
+    fixture and checkpoint: K1 once per test and calibration batch, K8 53
+    times per test batch, a valid plate-leak submission. Returns K8's
+    launches."""
+    from rxtpu_torch.ops import int8_conv as k8
+    from rxtpu_torch.ops.crop_norm import crop_normalize
+
+    out_dir = os.path.join(test_dir, "int8")
+    os.makedirs(out_dir)
+    argv_q = [out_dir if a == test_dir else a for a in argv] + ["--quantize", "int8"]
+    calib = min(2, n_batches)  # the CLI's default --calib-batches, within the first experiment
+    cwd = os.getcwd()
+    os.chdir(test_dir)
+    # the path's launches: every count set to 0 just before, read just after
+    crop_normalize.launches = k8.int8_conv.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv_q)
+        import torch
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    k1, k8_launches = crop_normalize.launches, k8.int8_conv.launches
+    print(f"cli --quantize int8 rc {rc} in {time.perf_counter() - t0:.2f} s; crop_norm launches "
+          f"{k1} ({n_batches} test + {calib} calibration batches); int8_conv launches "
+          f"{k8_launches} ({K8_LAUNCHES} x {n_batches} test batches)")
+    if rc != 0:
+        fail(f"cli --quantize int8 exited {rc}")
+    if k1 != n_batches + calib or k8_launches != K8_LAUNCHES * n_batches:
+        fail(f"--quantize int8 launched K1 {k1} and K8 {k8_launches} times")
+    got = check_submission(os.path.join(out_dir, "submission_smoke.csv"), fx)
+    bf16 = check_submission(os.path.join(test_dir, "submission_smoke.csv"), fx)
+    print(f"int8 against bf16 submission: {sum(a != b for a, b in zip(got, bf16))} of "
+          f"{len(got)} wells assigned otherwise")
+    return k8_launches
+
+
+def int8_forward_phase(dev, model, batch):
+    """Phase 4f: the int8 predict step on one full-width batch, calibrated on
+    it. On the kernels (K1, K8) against the plain versions on the card: the
+    backbone's bf16 features and the probabilities bit-equal; against the
+    bf16 ``Predictor``: top-1 agreement and the largest probability gap; and
+    once without transforms (K1's int8 mode). Returns the steps for phase 7."""
+    import torch
+    from rxtpu_torch.infer.predict import Predictor, tta_transforms
+    from rxtpu_torch.infer.quant import QuantPredictor, calibrate, prepare_quantized
+    from rxtpu_torch.ops import crop_norm
+    from rxtpu_torch.ops import int8_conv as k8
+
+    t0 = time.perf_counter()
+    qstats = calibrate(model, [batch], None, torch.bfloat16)
+    qnet = prepare_quantized(model, qstats, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"calibrate (1 batch) + prepare_quantized in {time.perf_counter() - t0:.2f} s; "
+          f"stem in_scale {float(qnet.backbone.conv_init.in_scale):.6g}, kernel_q "
+          f"{tuple(qnet.backbone.conv_init.kernel_q.shape)} int8")
+    qstep = QuantPredictor(qnet, None, tta_transforms("none"))  # the CLI's path
+    feats = []
+    hook = qnet.backbone.register_forward_hook(lambda mod, i, out: feats.append(out))
+    runs = {}
+    for label in ("kernels", "plain"):
+        saved = crop_norm.crop_normalize, k8.int8_conv
+        if label == "plain":  # eval_batch_normalize and QuantConv look them up in the modules
+            crop_norm.crop_normalize = crop_norm.crop_normalize_reference
+            k8.int8_conv = k8.int8_conv_reference
+        before = (saved[0].launches, saved[1].launches)
+        try:
+            t0 = time.perf_counter()
+            probs = qstep(batch)
+            torch.cuda.synchronize()
+            runs[label] = (probs, feats[-1], time.perf_counter() - t0,
+                           (saved[0].launches - before[0], saved[1].launches - before[1]))
+        finally:
+            crop_norm.crop_normalize, k8.int8_conv = saved
+    hook.remove()
+    (pk, fk, tk, lk), (pp, fp, tp, lp) = runs["kernels"], runs["plain"]
+    fbad, ferr = bitwise_diff(fk, fp)
+    pbad, perr = bitwise_diff(pk, pp)
+    print(f"int8 predict B={B} G=6 {SRC}^2 on the kernels ({tk:.2f} s; K1/K8 launches {lk}) "
+          f"against the plain versions ({tp:.2f} s; {lp}): features {tuple(fk.shape)} "
+          f"{fk.dtype} mismatches {fbad} (max {ferr}), probabilities mismatches {pbad} "
+          f"(max {perr})")
+    if lk != (1, K8_LAUNCHES) or lp != (0, 0):
+        fail(f"the int8 step launched K1/K8 {lk} times on the kernels, {lp} on the plain versions")
+    if fbad or pbad or not bool(torch.isfinite(pk).all()) or tuple(pk.shape) != (B, 1108):
+        fail("the int8 forward on the kernels differs from the plain versions")
+    pstep = Predictor(model, None, dtype=torch.bfloat16)
+    pb = pstep(batch)
+    agree = float((pk.argmax(-1) == pb.argmax(-1)).float().mean())
+    gap = float((pk - pb).abs().max())
+    print(f"int8 against the bf16 Predictor on the same batch: top-1 agreement {agree:.4f}, "
+          f"max |probs int8 - bf16| {gap:.4g} (limit 0.08, tests/test_quant.py:109; max prob "
+          f"{float(pb.max()):.4g})")
+    if not math.isfinite(gap) or gap >= 0.08:
+        fail("the int8 probabilities are 0.08 or more from the bf16 Predictor's")
+    qstep_src = QuantPredictor(qnet, None, None)  # quantize-at-source: K1's int8 mode
+    before = (crop_norm.crop_normalize.launches, k8.int8_conv.launches)
+    ps = qstep_src(batch)
+    torch.cuda.synchronize()
+    launched = (crop_norm.crop_normalize.launches - before[0], k8.int8_conv.launches - before[1])
+    print(f"QuantPredictor(transforms=None), K1 writing int8 views: K1/K8 launches {launched}; "
+          f"max |probs - the bf16-view path's| {float((ps - pk).abs().max()):.4g}, top-1 "
+          f"agreement {float((ps.argmax(-1) == pk.argmax(-1)).float().mean()):.4f}")
+    if launched != (1, K8_LAUNCHES) or not bool(torch.isfinite(ps).all()):
+        fail("the quantize-at-source step did not run K1 once and K8 53 times")
+    return qstep, qstep_src, pstep
+
+
+def int8_work(key):
+    """Bytes (the input pixels some tap reads, weights, scale and bias,
+    residual, each read once; output written once) and int8 operations (two
+    per multiply-add) of one K8 call. A 1x1/2 projection reads one pixel in
+    four, and a pixel's channels (256 or more) are one contiguous run, so the
+    others are never fetched."""
+    n, h, w, cin, cout, k, s, p, res, out_bytes = key
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+
+    def touched(size, out):  # input rows (or columns) that some tap reads
+        return len({o * s - p + t for o in range(out) for t in range(k)} & set(range(size)))
+
+    m, kk = n * ho * wo, k * k * cin
+    moved = (n * touched(h, ho) * touched(w, wo) * cin + cout * kk + 8 * cout
+             + m * cout * (res + out_bytes))
+    return moved, 2 * m * cout * kk
+
+
+def int8_timings(dev, qstep, qstep_src, pstep, batch, card):
+    """Phase 7's int8 path: the predict steps (CLI path, quantize-at-source,
+    the bf16 Predictor) by host clock and events, peak memory and a profile;
+    K8 at each of the forward's distinct shapes by events beside its bound,
+    its plain version, ``torch._int_mm`` (the 1x1 stride-1 shapes: the same
+    int32 sums) and cuDNN's bf16 conv of the shape (context); the NHWC
+    permute of the stem's input. Returns K8's (ms, plain, bound, bytes ms,
+    operations ms, library yardstick ms, cuDNN bf16 conv ms) per predict step;
+    the yardstick is ``torch._int_mm`` for the 1x1 stride-1 shapes and
+    cuDNN's bf16 conv of the shape for the others."""
+    import torch
+    import torch.nn.functional as F
+    from rxtpu_torch.models.quant import quantize_to
+    from rxtpu_torch.ops import int8_conv as k8
+    from rxtpu_torch.ops.crop_norm import eval_batch_normalize
+
+    for label, step in (("int8 (CLI path: bf16 views)", qstep),
+                        ("int8 quantize-at-source (int8 views)", qstep_src),
+                        ("bf16 Predictor", pstep)):
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(batch)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        ev = cuda_ms(lambda: step(batch), iters, warmup=0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"predict step {label} B={B} G=6 {SRC}^2: {host:.3f} ms host clock, {ev:.3f} ms "
+              f"CUDA events, {B * 6 * 1e3 / host:.1f} views/s, peak memory "
+              f"{peak / 2**30:.3f} GiB [{card}]")
+        if step is qstep:
+            device_profile(lambda: step(batch), 3, "int8 predict steps", ev)
+
+    # the forward's K8 calls, one per distinct shape and epilogue, with counts
+    calls, real = {}, k8.int8_conv
+
+    def record(x, weight, scale, bias, kernel_size, stride=1, padding=0, **kw):
+        res = kw.get("residual")
+        out_bytes = 1 if kw.get("inv_out_scale") is not None else 2
+        key = (*x.shape, weight.shape[0], kernel_size, stride, padding,
+               0 if res is None else res.element_size(), out_bytes)
+        if key not in calls:
+            calls[key] = [0, (x, weight, scale, bias, kernel_size, stride, padding), kw]
+        calls[key][0] += 1
+        return real(x, weight, scale, bias, kernel_size, stride, padding, **kw)
+
+    k8.int8_conv = record
+    try:
+        qstep(batch)
+    finally:
+        k8.int8_conv = real
+    if sum(c[0] for c in calls.values()) != K8_LAUNCHES:
+        fail(f"one int8 forward made {sum(c[0] for c in calls.values())} K8 calls")
+    tot = [0.0] * 7
+    for key, (count, args, kw) in calls.items():
+        n, h, w, cin, cout, k, s, p, res, out_bytes = key
+        x, weight = args[0].contiguous(), args[1]
+        ms = cuda_ms(lambda: k8.int8_conv(x, *args[1:], **kw), 10)
+        plain_ms = cuda_ms(lambda: k8.int8_conv_reference(x, *args[1:], **kw), 1, warmup=1)
+        moved, ops = int8_work(key)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
+        bnd = max(t_bytes, t_ops)
+        lib, mm_ms = "", None
+        if k == 1 and s == 1:
+            a = x.reshape(-1, cin)
+            bt = weight.t()  # [K, Cout], column-major
+            mm_ms = cuda_ms(lambda: torch._int_mm(a, bt), 10)
+            lib = f"torch._int_mm [{a.shape[0]},{cin}]x[{cin},{cout}] {mm_ms:.4f} ms; "
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last NCHW view
+        wb = weight.reshape(cout, k, k, cin).permute(0, 3, 1, 2).to(torch.bfloat16)
+        conv_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=p), 10)
+        print(f"K8 x{count} [{n},{h},{w},{cin}] -> {cout} {k}x{k}/{s} pad {p} "
+              f"res {res}B out {out_bytes}B: {ms:.4f} ms (bound {bnd:.4f} ms by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}: {moved / 1e6:.1f} MB, "
+              f"{ops / 1e12:.3f} TOP; {100 * bnd / ms:.1f}% of it, {ops / ms / 1e9:.1f} TOP/s), "
+              f"plain {plain_ms:.3f} ms; {lib}cuDNN bf16 conv channels-last {conv_ms:.4f} ms "
+              f"[{card}]")
+        yard = conv_ms if mm_ms is None else mm_ms
+        for i, v in enumerate((ms, plain_ms, bnd, t_bytes, t_ops, yard, conv_ms)):
+            tot[i] += count * v
+        del xb, wb
+    print(f"K8 per int8 predict step ({K8_LAUNCHES} launches): {tot[0]:.3f} ms, bound "
+          f"{tot[2]:.3f} ms ({100 * tot[2] / tot[0]:.1f}%; bytes {tot[3]:.3f} ms, operations "
+          f"{tot[4]:.3f} ms), plain {tot[1]:.3f} ms; library yardstick (torch._int_mm for "
+          f"1x1/1, cuDNN bf16 conv for the rest) {tot[5]:.3f} ms; cuDNN bf16 conv of every "
+          f"shape {tot[6]:.3f} ms [{card}]")
+    views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"], None)
+    scale = qstep.net.backbone.conv_init.in_scale
+    v8 = quantize_to(views, scale)[0].reshape(B * 6, 6, SRC, SRC)
+    vb = views.reshape(B * 6, 6, SRC, SRC)
+    perm_ms = cuda_ms(lambda: v8.permute(0, 2, 3, 1).contiguous(), 20)
+    quant_ms = cuda_ms(lambda: quantize_to(vb.permute(0, 2, 3, 1), scale)[0].contiguous(), 20)
+    print(f"the stem's NHWC permute of int8 [{B * 6},6,{SRC},{SRC}]: {perm_ms:.4f} ms; the CLI "
+          f"path's quantize of the bf16 views with that permute: {quant_ms:.4f} ms [{card}]")
+    return tot
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1723,6 +2157,19 @@ def main() -> int:
     if "--fused-block" in sys.argv[1:]:  # only K6/K7's checks and their launches
         fb_phase2(dev)
         fb_launch_breakdown(dev)
+        print(card)
+        return 0
+    if "--int8" in sys.argv[1:]:  # only K8's checks, the int8 forward and its timings
+        from rxtpu_torch.data.synthetic import randomize_
+        from rxtpu_torch.models.twosites import TwoSitesNN
+
+        k8_phase2(dev)
+        phase(f"4f int8 predict step on one full-width batch [{B},6,6,{SRC}^2], seeded random "
+              "ResNet-50")
+        net = randomize_(TwoSitesNN("resnet50", nb_classes=1108), seed=0).to(dev).eval()
+        batch = int8_batch(dev, 11)
+        phase("7 timings of the int8 path")
+        int8_timings(dev, *int8_forward_phase(dev, net, batch), batch, card)
         print(card)
         return 0
 
@@ -1801,6 +2248,7 @@ def main() -> int:
 
     fb_bodies = dict(zip(FB_NAMES, fb.BODIES))
     fb_err = fb_phase2(dev)
+    k8_err = k8_phase2(dev)
 
     # ---- 3. training end to end ---------------------------------------------
     phase("3 training end to end at full width (rxtpu_torch.cli)")
@@ -1965,23 +2413,7 @@ def main() -> int:
         fail(f"cli exited {rc}")
     if crop_normalize.launches != n_batches:
         fail(f"crop_norm launched {crop_normalize.launches} times for {n_batches} batches")
-    with open(os.path.join(test_dir, "submission_smoke.csv"), newline="") as f:
-        sub = list(csv.DictReader(f))
-    if [r["id_code"] for r in sub] != [r["id_code"] for r in fx["test_rows"]]:
-        fail("submission rows do not match the test ids")
-    sirnas = [int(r["sirna"]) for r in sub]
-    if not all(0 <= s < 1108 for s in sirnas):
-        fail("sirna out of [0, 1108)")
-    by_plate = {}
-    for row, s in zip(fx["test_rows"], sirnas):
-        if fx["plate_groups"][s, 0] != row["plate"]:
-            fail(f"{row['id_code']}: sirna {s} is not on plate {row['plate']}")
-        by_plate.setdefault(row["plate"], []).append(s)
-    for plate, ss in by_plate.items():
-        if len(set(ss)) != len(ss):
-            fail(f"plate {plate}: assignment is not one-to-one")
-    print(f"submission: {len(sub)} rows, plates {sorted(by_plate)}, one-to-one per plate, "
-          f"plate leak respected")
+    check_submission(os.path.join(test_dir, "submission_smoke.csv"), fx)
     with open(os.path.join(test_dir, "submission_smoke.csv"), "rb") as f:
         sub_bytes = f.read()
     out_dir = os.path.join(test_dir, "scan2")
@@ -2143,6 +2575,16 @@ def main() -> int:
     phase(f"4d PNG input and compressed packs at full width (6x{SRC}^2 planes): the PNG "
           "reader, pipelines from the tree, the pack tool, the CLI from the tree and packs")
     png_run = png_phase(dev, cli, train_dir, shear_kernels, crop_normalize, codecs)
+
+    # ---- 4e. --quantize int8: the test phase through the CLI --------------------
+    phase("4e --quantize int8 test phase end to end at full width on the trained checkpoint "
+          "(K1 in bf16, the stem quantizes, K8 for every conv)")
+    k8_launches = int8_cli_phase(cli, test_dir, argv, fx, n_batches)
+
+    # ---- 4f. the int8 forward at full width, kernels against plain versions -----
+    phase(f"4f int8 predict step on one full-width batch [{B},6,6,{SRC}^2] on phase 3's last "
+          "checkpoint: kernels against plain versions, against the bf16 Predictor")
+    int8_steps = int8_forward_phase(dev, trained, test_batch)
 
     # ---- 5. the card against the CPU ------------------------------------------
     phase("5 card against CPU: f32 predict logits; f32 train step against f64")
@@ -2417,36 +2859,6 @@ def main() -> int:
           f"host clock, {step_ev:.3f} ms/step CUDA events, {B * G * 1e3 / step_ms:.1f} views/s, "
           f"peak memory {step_peak / 2**30:.3f} GiB")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_profile(fn, steps, label, ref_ms):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-        # device-side events only: an aten op's own device total repeats its kernels'
-        averages = prof.key_averages()
-        kernels = [e for e in averages
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        if not kernels:
-            fail("the profiler recorded no device time")
-        device_us = sum(e.self_device_time_total for e in kernels)
-        print(f"profile of {steps} {label}: {device_us / 1e3 / steps:.3f} ms device time "
-              f"per step, {100 * device_us / 1e3 / steps / ref_ms:.1f}% of the step's "
-              f"{ref_ms:.3f} ms")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]:
-            print(f"  {100 * e.self_device_time_total / device_us:5.1f}%  "
-                  f"{e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
-                  f"x{e.count // steps:<4d} {e.key[:110]}")
-        # where the host's time goes (under the profiler, which slows the host)
-        host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
-                      key=lambda e: -e.self_cpu_time_total)[:8]
-        print("  host, by self time per step: " + ", ".join(
-            f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / steps:.3f} ms x{e.count // steps}"
-            for e in host))
-        return kernels, device_us
-
     kernels, device_us = device_profile(lambda: step(state, fixed, 0, True), 3,
                                         "train steps", step_ev)
     shear_us = sum(e.self_device_time_total for e in kernels if "shear_" in e.key)
@@ -2617,6 +3029,7 @@ def main() -> int:
                   f"{views * 1e3 / host:.1f} views/s, peak memory {peak / 2**30:.3f} GiB "
                   f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB resident)")
     device_profile(lambda: preds[True](test_batch), 3, "fused predict steps", ev)
+    k8_times = int8_timings(dev, *int8_steps, test_batch, card)
     jpeg_timings(dev, cli, jpeg_run, card)
     png_timings(dev, cli, png_run, card, codecs)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
@@ -2657,6 +3070,13 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": mm_ms,
         })
+    ms, plain_ms, bnd, t_bytes, t_ops, lib_ms, _ = k8_times
+    entries.append({
+        "name": "int8_conv", "route": "cuda", "source": "rxtpu_torch/csrc/int8_conv.cu",
+        "replaces": K8_REPLACES, "launches": k8_launches, "max_abs_err": k8_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

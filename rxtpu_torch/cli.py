@@ -20,8 +20,9 @@ line works for both:
 4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
    format): plate groups from ``train.csv``, predict each test experiment
    through ``{pack}/test.rxpack`` or its own image store with the BN-folded
-   model, mask by plate, assign one class per row and write
-   ``submission_{id}.csv``.
+   model (or, with ``--quantize int8``, the W8A8 int8 model, calibrated once
+   on the first experiment's opening ``--calib-batches`` batches), mask by
+   plate, assign one class per row and write ``submission_{id}.csv``.
 
 Flags whose path is not ported yet exit with a message that names them.
 
@@ -76,8 +77,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--predict-scan-window", type=int, default=1,
                    help="rxtpu's scanned predict window: accepted and ignored, the "
                         "port predicts one batch per step (the same numbers)")
-    p.add_argument("--quantize", default="none", choices=["none", "int8"])
-    p.add_argument("--calib-batches", type=int, default=2)
+    p.add_argument("--quantize", default="none", choices=["none", "int8"],
+                   help="int8: W8A8 int8 inference (resnet backbones, mlp head)")
+    p.add_argument("--calib-batches", type=int, default=2,
+                   help="test batches of the first experiment that calibrate --quantize int8")
     p.add_argument("--calibrate", action="store_true",
                    help="neg-control embedding calibration in the head")
     p.add_argument("--fuse-blocks", default="auto", choices=["auto", "on", "off"])
@@ -110,8 +113,6 @@ def _not_ported(args) -> Optional[str]:
         return f"--head {args.head}"
     if args.backbone and not args.backbone.startswith("resnet"):
         return f"--backbone {args.backbone}"
-    if args.quantize != "none":
-        return f"--quantize {args.quantize}"
     if args.assign_method == "greedy_jax":
         return "--assign-method greedy_jax"
     if args.distributed or args.model_parallel != 1:
@@ -272,6 +273,25 @@ def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) 
     print(f"Best validation accuracy: {result.best_accuracy:.4f}")
 
 
+def quantized_step(model, pipe, args, dtype: torch.dtype, device: torch.device):
+    """The int8 predict step (``rxtpu/cli.py:517-532``): one calibration over
+    the opening ``--calib-batches`` batches of ``pipe`` (the first
+    experiment's), one fold and quantize, reused for every experiment; the
+    TTA transforms of ``--tta`` (``none`` is ``[identity]``, so K1 writes
+    bf16 views and the stem conv quantizes them, as in rxtpu's CLI)."""
+    import itertools
+
+    from rxtpu_torch.data.pipeline import device_prefetch
+    from rxtpu_torch.infer.predict import tta_transforms
+    from rxtpu_torch.infer.quant import QuantPredictor, calibrate, prepare_quantized
+
+    host = ({k: b[k] for k in ("images", "mean", "std")}
+            for b in itertools.islice(pipe.epoch(0), args.calib_batches))
+    qstats = calibrate(model, device_prefetch(host, device), args.test_crop, dtype)
+    return QuantPredictor(prepare_quantized(model, qstats, dtype), args.test_crop,
+                          tta_transforms(args.tta), args.tta_average)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
     missing = _not_ported(args)
@@ -349,14 +369,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     # one byte store per experiment, so the test bytes held stay one
     # experiment wide
     pack_store = _store(cfg, idx_test_all, args.pack) if args.pack else None
-    step = Predictor(model, args.test_crop, args.tta, args.tta_average,
-                     dtype=getattr(torch, cfg.model.compute_dtype))
+    dtype = getattr(torch, cfg.model.compute_dtype)
+    use_int8 = args.quantize == "int8"
+    if use_int8:
+        from rxtpu_torch.infer.quant import quantizable
+
+        if not quantizable(model):
+            raise SystemExit("--quantize int8 supports resnet backbones with the mlp head, "
+                             f"got {cfg.model.backbone}/{cfg.model.head}")
+        if args.calib_batches < 1:
+            raise SystemExit("--calib-batches must be >= 1")
+        step = None  # built on the first experiment's calibration batches
+    else:
+        step = Predictor(model, args.test_crop, args.tta, args.tta_average, dtype=dtype)
 
     pred_by_id = {}
     for i, experiment in enumerate(experiments):
         idx_exp = idx_test_all.for_experiment(experiment)
         pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
                         src_size=src_size, decoder_threads=DECODER_THREADS, device=device)
+        if step is None:
+            step = quantized_step(model, pipe, args, dtype, device)
         probs, ids = predict_dataset(step, pipe, device)
         exp_rows = [r for r in test_rows if r["experiment"] == experiment]
         if [r["id_code"] for r in exp_rows] != ids:

@@ -75,13 +75,21 @@ class Predictor:
     def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """{images uint8 [B,G,C,H,W], mean/std f32 [B,C]} -> f32 probs [B, classes]."""
         views = self.front(batch["images"], batch["mean"], batch["std"])
-        acc = None
-        for t in self.transforms:
-            logits = self.net(t(views)).float()
-            term = torch.softmax(logits, dim=-1) if self.average == "probs" else logits
-            acc = term if acc is None else acc + term
-        acc = acc / len(self.transforms)
-        return acc if self.average == "probs" else torch.softmax(acc, dim=-1)
+        return average_variants(self.net, views, self.transforms, self.average)
+
+
+def average_variants(net: Callable, views: torch.Tensor, transforms: List[View],
+                     average: str) -> torch.Tensor:
+    """f32 probabilities of ``net`` over the TTA variants of ``views``:
+    softmax outputs averaged (``probs``), or one softmax of the averaged
+    logits (``logits``)."""
+    acc = None
+    for t in transforms:
+        logits = net(t(views)).float()
+        term = torch.softmax(logits, dim=-1) if average == "probs" else logits
+        acc = term if acc is None else acc + term
+    acc = acc / len(transforms)
+    return acc if average == "probs" else torch.softmax(acc, dim=-1)
 
 
 def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device

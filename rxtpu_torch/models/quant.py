@@ -1,0 +1,127 @@
+"""W8A8 int8 modules of the inference path (counterpart of
+``rxtpu/models/quant.py``).
+
+Symmetric, zero-point-free quantization (conv zero padding stays exact):
+
+  xq  = clip(round(x / in_scale), -127, 127)  int8   [per-tensor scale]
+  y   = conv(xq, kernel_q)                    int32
+  out = y * (w_scale * in_scale) + bias       f32    [w_scale per out-channel]
+
+Activations stay int8 between convs, NHWC: each conv's epilogue (dequant,
+bias, residual, ReLU, requantize to the next conv's scale) runs inside the
+conv's kernel K8 (``rxtpu_torch.ops.int8_conv``), and a residual branch reads
+the int8 tensor with its scale. Calibration (``rxtpu_torch.infer.quant``)
+observes the BN-folded twin's convs with ``ConvObserver``. ``QuantPreNorm``
+(DenseNet's pre-activation BN) is not ported: DenseNet is not.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rxtpu_torch.ops import int8_conv as k8
+
+Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 NHWC tensor, its f32 scale)
+
+
+def quantize_to(x: torch.Tensor, scale: torch.Tensor) -> Quantized:
+    """A float tensor -> ``(int8, scale)`` at a calibrated scale: multiply by
+    ``1/scale`` (f32), round half to even, clip to +-127."""
+    inv = (1.0 / scale).to(torch.float32)
+    q = torch.clamp(torch.round(x.to(torch.float32) * inv), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def quant_max_pool(x: Quantized) -> Quantized:
+    """Max pool 3x3/2, pad 1, on an ``(int8 NHWC, scale)`` pair. Quantization is
+    monotone, so pooling the int8 tensor is quantizing the pooled one. The
+    pool runs in bf16, which holds every int8 value exactly; its -inf pad
+    acts as rxtpu's -128 (every window holds a real value)."""
+    q, s = x
+    y = F.max_pool2d(q.permute(0, 3, 1, 2).to(torch.bfloat16), 3, 2, 1)
+    return y.to(torch.int8).permute(0, 2, 3, 1).contiguous(), s
+
+
+class QuantConv(nn.Module):
+    """int8 conv on weights from ``rxtpu_torch.infer.quant.prepare_quantized``.
+
+    Buffers (rxtpu's parameter names): ``kernel_q`` int8 ``[Cout, kh*kw*Cin]``
+    (K-major, (ky, kx, ci) order), ``w_scale`` and ``bias`` f32 ``[Cout]``,
+    ``in_scale`` and ``out_scale`` f32 scalars (the conv's calibrated input
+    and output ranges over 127; the projections requantize at their
+    ``out_scale``).
+
+    ``x``: NHWC, a float tensor (quantized here at ``in_scale``), a bare int8
+    tensor already at ``in_scale`` (quantize-at-source), or an ``(int8,
+    scale)`` pair a producer quantized. ``out_scale`` requantizes the output
+    and returns an ``(int8, out_scale)`` pair; without it the output is
+    ``out_dtype``. ``relu_out`` and ``residual`` (a pair or a float tensor,
+    added before the ReLU) fold into the epilogue.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        k = kernel_size * kernel_size * in_channels
+        self.register_buffer("kernel_q", torch.zeros(out_channels, k, dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(out_channels))
+        self.register_buffer("bias", torch.zeros(out_channels))
+        self.register_buffer("in_scale", torch.ones(()))
+        self.register_buffer("out_scale", torch.ones(()))
+
+    def forward(self, x: Union[torch.Tensor, Quantized],
+                out_scale: Optional[torch.Tensor] = None, relu_out: bool = False,
+                residual: Union[None, torch.Tensor, Quantized] = None,
+                out_dtype: torch.dtype = torch.bfloat16):
+        if isinstance(x, tuple):
+            xq, in_scale = x
+        elif x.dtype == torch.int8:
+            xq, in_scale = x, self.in_scale
+        else:
+            xq, in_scale = quantize_to(x, self.in_scale)
+        res, res_scale = residual if isinstance(residual, tuple) else (residual, None)
+        inv_out = None if out_scale is None else (1.0 / out_scale).to(torch.float32)
+        y = k8.int8_conv(xq, self.kernel_q, self.w_scale * in_scale, self.bias,
+                         self.kernel_size, self.stride, self.padding, residual=res,
+                         residual_scale=res_scale, relu=relu_out, inv_out_scale=inv_out,
+                         out_dtype=out_dtype)
+        return y if out_scale is None else (y, out_scale)
+
+
+class ConvObserver:
+    """The observed forward of calibration (rxtpu's ``ObservedConv``): forward
+    hooks on every ``nn.Conv2d`` of ``module`` record the absmax of the conv's
+    input and output as f32 scalars, on the tensors the module computes,
+    max-reduced across calls. ``stats`` maps each conv's name in ``module``
+    (``conv_init``, ``stage1_block1.Conv_0``, ...) to ``{"in_absmax",
+    "out_absmax"}``. Use as a context manager; leaving it removes the hooks."""
+
+    def __init__(self, module: nn.Module):
+        self.stats: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._handles = [conv.register_forward_hook(functools.partial(self._record, name))
+                         for name, conv in module.named_modules()
+                         if isinstance(conv, nn.Conv2d)]
+
+    def _record(self, name, _conv, inputs, output):
+        seen = {"in_absmax": inputs[0].detach().abs().amax().to(torch.float32),
+                "out_absmax": output.detach().abs().amax().to(torch.float32)}
+        old = self.stats.get(name)
+        self.stats[name] = seen if old is None else {
+            k: torch.maximum(old[k], v) for k, v in seen.items()}
+
+    def close(self) -> None:
+        for handle in self._handles:
+            handle.remove()
+        self._handles = []
+
+    def __enter__(self) -> "ConvObserver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

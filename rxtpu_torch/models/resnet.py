@@ -14,6 +14,13 @@ a 3x3/2 max pool padded 1, and features are the global mean.
 ``stem_input=True`` takes the stem's output (the fused stem kernel K5,
 ``rxtpu_torch.ops.fused_stem``) and skips the stem's ops; ``conv_init`` and
 ``bn_init`` stay in the state dict, so checkpoints and folding map as before.
+``quantized=True`` is the W8A8 int8 inference variant
+(``rxtpu/models/resnet.py:164-281`` with ``quantized``): every conv is a
+``QuantConv`` (``rxtpu_torch.models.quant``) on the int8 weights of
+``rxtpu_torch.infer.quant.prepare_quantized``, activations stay int8 and
+NHWC from the stem on, each conv's epilogue requantizes to the next conv's
+``in_scale``, and the last block emits the ``dtype`` the caller passes (the
+head's) before the global mean.
 ``fuse_blocks=True`` runs, in train mode, each run of consecutive stride-1
 bottleneck blocks through the fused kernels K6/K7
 (``rxtpu_torch.models.fused``) on a channels-last bf16 ``[N, H*W, C]``
@@ -38,7 +45,7 @@ and bias zero, and a zero scale on each block's last BN.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Type
+from typing import Optional, Sequence, Type
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +54,7 @@ from torch import nn
 from rxtpu_torch.config import NB_CHANNELS
 from rxtpu_torch.models.fused import fused_bottleneck
 from rxtpu_torch.models.norm import BatchNorm
+from rxtpu_torch.models.quant import QuantConv, quant_max_pool
 
 
 def compute_dtype(param: torch.Tensor) -> torch.dtype:
@@ -62,22 +70,32 @@ def _norm_factory(folded: bool):
     return (lambda c: nn.Identity()) if folded else BatchNorm
 
 
+def _conv_factory(folded: bool, quantized: bool):
+    """(in, out, kernel, stride, padding) -> the block's conv: a ``QuantConv``
+    when quantized, else an ``nn.Conv2d`` with a bias when folded."""
+    if quantized:
+        return QuantConv
+    return lambda cin, cout, k, stride=1, pad=0: nn.Conv2d(cin, cout, k, stride, pad,
+                                                           bias=folded)
+
+
 class ResNetBlock(nn.Module):
     """Basic 3x3 + 3x3 residual block (resnet18/34)."""
 
     expansion = 1
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1,
-                 folded: bool = False):
+                 folded: bool = False, quantized: bool = False):
         super().__init__()
-        norm = _norm_factory(folded)
-        self.Conv_0 = nn.Conv2d(in_channels, filters, 3, stride, 1, bias=folded)
+        norm = _norm_factory(folded or quantized)
+        conv = _conv_factory(folded, quantized)
+        self.Conv_0 = conv(in_channels, filters, 3, stride, 1)
         self.BatchNorm_0 = norm(filters)
-        self.Conv_1 = nn.Conv2d(filters, filters, 3, 1, 1, bias=folded)
+        self.Conv_1 = conv(filters, filters, 3, 1, 1)
         self.BatchNorm_1 = norm(filters)
         self.conv_proj = self.norm_proj = None
         if stride != 1 or in_channels != filters:
-            self.conv_proj = nn.Conv2d(in_channels, filters, 1, stride, bias=folded)
+            self.conv_proj = conv(in_channels, filters, 1, stride)
             self.norm_proj = norm(filters)
         self.out_channels = filters
 
@@ -87,6 +105,16 @@ class ResNetBlock(nn.Module):
         residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x))
         return F.relu(residual + y)
 
+    def forward_quantized(self, x, out_scale, dtype):
+        """``(int8, scale)`` in, ``(int8, out_scale)`` out, or ``dtype`` when
+        ``out_scale`` is None (``rxtpu/models/resnet.py:44-61``)."""
+        y = self.Conv_0(x, out_scale=self.Conv_1.in_scale, relu_out=True)
+        residual = x
+        if self.conv_proj is not None:
+            residual = self.conv_proj(x, out_scale=self.conv_proj.out_scale)
+        return self.Conv_1(y, out_scale=out_scale, relu_out=True, residual=residual,
+                           out_dtype=dtype)
+
 
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck block (resnet50/101/152), stride on the 3x3."""
@@ -94,19 +122,20 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1,
-                 folded: bool = False):
+                 folded: bool = False, quantized: bool = False):
         super().__init__()
-        norm = _norm_factory(folded)
+        norm = _norm_factory(folded or quantized)
+        conv = _conv_factory(folded, quantized)
         out = filters * 4
-        self.Conv_0 = nn.Conv2d(in_channels, filters, 1, bias=folded)
+        self.Conv_0 = conv(in_channels, filters, 1)
         self.BatchNorm_0 = norm(filters)
-        self.Conv_1 = nn.Conv2d(filters, filters, 3, stride, 1, bias=folded)
+        self.Conv_1 = conv(filters, filters, 3, stride, 1)
         self.BatchNorm_1 = norm(filters)
-        self.Conv_2 = nn.Conv2d(filters, out, 1, bias=folded)
+        self.Conv_2 = conv(filters, out, 1)
         self.BatchNorm_2 = norm(out)
         self.conv_proj = self.norm_proj = None
         if stride != 1 or in_channels != out:
-            self.conv_proj = nn.Conv2d(in_channels, out, 1, stride, bias=folded)
+            self.conv_proj = conv(in_channels, out, 1, stride)
             self.norm_proj = norm(out)
         self.out_channels = out
 
@@ -117,36 +146,52 @@ class BottleneckBlock(nn.Module):
         residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x))
         return F.relu(residual + y)
 
+    def forward_quantized(self, x, out_scale, dtype):
+        """As ``ResNetBlock.forward_quantized`` (``rxtpu/models/resnet.py:88-106``)."""
+        y = self.Conv_0(x, out_scale=self.Conv_1.in_scale, relu_out=True)
+        y = self.Conv_1(y, out_scale=self.Conv_2.in_scale, relu_out=True)
+        residual = x
+        if self.conv_proj is not None:
+            residual = self.conv_proj(x, out_scale=self.conv_proj.out_scale)
+        return self.Conv_2(y, out_scale=out_scale, relu_out=True, residual=residual,
+                           out_dtype=dtype)
+
 
 class ResNet(nn.Module):
     """Feature extractor: stem + 4 stages + global mean pool -> [N, F].
 
     The input is cast to ``compute_dtype``: bf16 under ``torch.autocast``
     (f32 parameters) or after ``.to(torch.bfloat16)`` (the folded twin).
+    Quantized, the compute dtype is ``forward``'s ``dtype`` (the int8
+    buffers have none; ``TwoSitesNN`` passes its head's), and an int8 input
+    is taken as already quantized at ``conv_init.in_scale``.
     """
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
                  num_filters: int = 64, in_channels: int = NB_CHANNELS,
                  folded: bool = False, stem_input: bool = False,
-                 fuse_blocks: bool = False):
+                 fuse_blocks: bool = False, quantized: bool = False):
         super().__init__()
         self.stem_input = stem_input
         self.fuse_blocks = fuse_blocks
-        self.conv_init = nn.Conv2d(in_channels, num_filters, 7, 2, 3, bias=folded)
-        self.bn_init = _norm_factory(folded)(num_filters)
+        self.quantized = quantized
+        self.conv_init = _conv_factory(folded, quantized)(in_channels, num_filters, 7, 2, 3)
+        self.bn_init = _norm_factory(folded or quantized)(num_filters)
         self.block_names = []
         channels = num_filters
         for i, n_blocks in enumerate(stage_sizes):
             for j in range(n_blocks):
                 stride = 2 if i > 0 and j == 0 else 1
-                block = block_cls(channels, num_filters * 2**i, stride, folded)
+                block = block_cls(channels, num_filters * 2**i, stride, folded, quantized)
                 name = f"stage{i + 1}_block{j + 1}"
                 self.add_module(name, block)
                 self.block_names.append(name)
                 channels = block.out_channels
         self.num_features = channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if self.quantized:
+            return self._forward_quantized(x, dtype)
         x = x.to(compute_dtype(self.conv_init.weight))
         if not self.stem_input:
             x = F.relu(self.bn_init(self.conv_init(x)))
@@ -169,6 +214,25 @@ class ResNet(nn.Module):
             x = _to_nchw(flat, h, w, dtype)
         return x.mean(dim=(2, 3))
 
+    def _forward_quantized(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """NCHW views (bf16, or int8 at ``conv_init.in_scale``) -> features in
+        ``dtype``: the stem conv (ReLU, requantized to the first block's
+        scale), the int8 max pool, then blocks that each requantize to the next
+        block's ``Conv_0.in_scale``; the last emits ``dtype``."""
+        if dtype is None:
+            raise ValueError("the quantized backbone needs the compute dtype")
+        blocks = [getattr(self, name) for name in self.block_names]
+        if x.dtype != torch.int8:
+            x = x.to(dtype)
+        # NHWC from here on: the stem conv's operand is made dense (a copy)
+        x = self.conv_init(x.permute(0, 2, 3, 1), out_scale=blocks[0].Conv_0.in_scale,
+                           relu_out=True)
+        x = quant_max_pool(x)
+        for k, block in enumerate(blocks):
+            nxt = blocks[k + 1].Conv_0.in_scale if k + 1 < len(blocks) else None
+            x = block.forward_quantized(x, nxt, dtype)
+        return x.mean(dim=(1, 2)).to(dtype)
+
 
 def _to_nchw(flat: torch.Tensor, height: int, width: int, dtype: torch.dtype) -> torch.Tensor:
     n, _, c = flat.shape
@@ -185,13 +249,13 @@ _ARCHS = {
 
 
 def make_backbone(arch: str, folded: bool = False, stem_input: bool = False,
-                  fuse_blocks: bool = False) -> ResNet:
+                  fuse_blocks: bool = False, quantized: bool = False) -> ResNet:
     if arch not in _ARCHS:
         raise ValueError(
             f"backbone {arch!r} is not ported (ported: {sorted(_ARCHS)})")
     stage_sizes, block_cls = _ARCHS[arch]
     return ResNet(stage_sizes, block_cls, folded=folded, stem_input=stem_input,
-                  fuse_blocks=fuse_blocks)
+                  fuse_blocks=fuse_blocks, quantized=quantized)
 
 
 @torch.no_grad()

@@ -9,7 +9,9 @@ for the head. ``set_dropout_generator`` points the head's dropout at a
 generator (the train step's per-step generator). ``stem_input=True``: x
 holds the stem's output maps ``[B, G, 64, Po, Po]`` (the fused stem K5).
 ``fuse_blocks=True``: the backbone's stride-1 bottlenecks run fused in train
-mode (K6/K7, ``rxtpu_torch.models.fused``).
+mode (K6/K7, ``rxtpu_torch.models.fused``). ``quantized=True``: the W8A8 int8
+backbone (``rxtpu_torch.models.resnet``) and the folded head, as
+``rxtpu_torch.infer.quant.prepare_quantized`` builds it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 
 from rxtpu_torch.models.heads import MLPHead
 from rxtpu_torch.models.norm import Dropout
-from rxtpu_torch.models.resnet import make_backbone
+from rxtpu_torch.models.resnet import compute_dtype, make_backbone
 
 
 class TwoSitesNN(nn.Module):
@@ -27,7 +29,7 @@ class TwoSitesNN(nn.Module):
                  size_features: int = 1024, dropout: float = 0.3,
                  head: str = "mlp", control_calibration: bool = False,
                  folded: bool = False, stem_input: bool = False,
-                 fuse_blocks: bool = False):
+                 fuse_blocks: bool = False, quantized: bool = False):
         super().__init__()
         if head != "mlp":
             raise NotImplementedError(f"the {head!r} head is not ported yet")
@@ -38,15 +40,19 @@ class TwoSitesNN(nn.Module):
                          fuse_blocks=fuse_blocks)
         self.control_calibration = control_calibration
         self.backbone = make_backbone(backbone, folded=folded, stem_input=stem_input,
-                                      fuse_blocks=fuse_blocks)
+                                      fuse_blocks=fuse_blocks, quantized=quantized)
         self.head = MLPHead(3 * self.backbone.num_features, nb_classes,
-                            size_features, dropout, folded=folded)
+                            size_features, dropout, folded=folded or quantized)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, g = x.shape[0], x.shape[1]
         if g % 3:
             raise ValueError(f"G-view axis must be divisible by 3, got {g}")
-        feats = self.backbone(x.reshape((b * g,) + tuple(x.shape[2:])))
+        x = x.reshape((b * g,) + tuple(x.shape[2:]))
+        if self.backbone.quantized:  # int8 buffers: compute in the head's dtype
+            feats = self.backbone(x, compute_dtype(self.head.fc1.weight))
+        else:
+            feats = self.backbone(x)
         f = feats.shape[-1]
         grouped = feats.reshape(b, 3, g // 3, f).mean(dim=2)
         if self.control_calibration:

@@ -1,0 +1,397 @@
+"""rxtpu_torch's W8A8 int8 inference against rxtpu's, on the CPU.
+
+- K8's plain version ``int8_conv_reference`` against rxtpu's ``QuantConv``
+  on the same int8 inputs and parameters, for each ResNet conv kind (stem
+  7x7/2 with 6 channels, 1x1/1, 3x3/1, 3x3/2, the 1x1/2 projection), with and
+  without residual (int8 or float), ReLU and requantize: the int32 sums
+  equal, .5 ties rounded alike, float outputs equal, int8 outputs equal
+  but for the +-1 flips that XLA CPU's FMA contraction may cause
+  (``ROADMAP.md`` queue 3; measured: none);
+- ``quant_max_pool`` bit-equal; ``calibrate``'s ranges within rtol 1e-5;
+  ``quantize_variables`` on the same f32 folded weights and stats bit-equal;
+- the whole ``QuantPredictor`` on rxtpu's prepared weights (``qvars``
+  carried across by ``from_flax_quantized``), with TTA transforms (the
+  CLI's path: bf16 views, the stem quantizes) and without (K1 writes int8
+  views), for resnet18 and resnet50; the port's own int8 path against its
+  f32 forward within ``tests/test_quant.py``'s limits; the CLI's guards.
+
+The kernel runs only on a card: the ``gpu`` test holds it against the plain
+version there. Shapes follow ``tests/test_quant.py``: crop 24 of 32^2
+sources, 7 classes, 16 head features, f32 compute.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rxtpu.config import Config, DataConfig, ModelConfig, TrainConfig
+from rxtpu.infer import calibrate as rx_calibrate
+from rxtpu.infer import make_quantized_predict_step
+from rxtpu.infer import prepare_quantized as rx_prepare_quantized
+from rxtpu.infer import quantize_variables as rx_quantize_variables
+from rxtpu.infer.fold import fold_variables
+from rxtpu.infer.tta import tta_transforms as rx_tta_transforms
+from rxtpu.models.quant import QuantConv as RxQuantConv
+from rxtpu.models.quant import quant_max_pool as rx_quant_max_pool
+from rxtpu.train import build_model, create_train_state
+from rxtpu_torch import cli as port_cli
+from rxtpu_torch.infer.predict import Predictor, tta_transforms
+from rxtpu_torch.infer.quant import (
+    QuantPredictor, calibrate, prepare_quantized, quantizable, quantize_variables,
+)
+from rxtpu_torch.models.convert import from_flax, from_flax_quantized, qstats_from_flax
+from rxtpu_torch.models.quant import quant_max_pool
+from rxtpu_torch.models.twosites import TwoSitesNN
+from rxtpu_torch.ops.int8_conv import (
+    int8_conv, int8_conv_reference, int8_conv_sums, pack_weight,
+)
+from test_torch_port_models import randomize_flax
+
+CROP, SRC, CLASSES = 24, 32, 7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# K8's plain version against rxtpu's QuantConv
+# ---------------------------------------------------------------------------
+
+# (label, N, H, W, Cin, Cout, kernel, stride, padding): ResNet's conv kinds,
+# odd sizes and channel counts that are not multiples of a tile
+CONV_KINDS = [
+    ("stem 7x7/2", 2, 21, 18, 6, 16, 7, 2, 3),
+    ("1x1/1", 2, 9, 7, 32, 24, 1, 1, 0),
+    ("3x3/1", 2, 9, 7, 32, 24, 3, 1, 1),
+    ("3x3/2", 2, 9, 7, 32, 40, 3, 2, 1),
+    ("1x1/2 proj", 2, 9, 7, 32, 48, 1, 2, 0),
+]
+# (requantize, relu, residual): the epilogues the forward uses, and the rest
+EPILOGUES = [(False, False, None), (False, True, None), (True, True, None),
+             (True, False, None), (True, True, "int8"), (False, True, "int8"),
+             (True, True, "float"), (False, False, "float")]
+FLIP_SHARE = 1e-3  # int8 outputs: at most this share off by one (FMA contraction)
+
+
+def _conv_case(kind, seed):
+    _, n, h, w, cin, cout, k, s, p = kind
+    rng = np.random.default_rng(seed)
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    return dict(
+        xq=rng.integers(-127, 128, (n, h, w, cin), dtype=np.int8),
+        kq=rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8),  # HWIO
+        w_scale=rng.uniform(0.5, 1.5, cout).astype(np.float32) / 127.0,
+        bias=rng.normal(0.0, 1.0, cout).astype(np.float32),
+        in_scale=np.float32(0.7 / (127.0 * np.sqrt(k * k * cin))),
+        out_scale=np.float32(1.3 / 127.0),
+        rq=rng.integers(-127, 128, (n, ho, wo, cout), dtype=np.int8),
+        rs=np.float32(0.9 / 127.0),
+        rf=rng.normal(0.0, 1.0, (n, ho, wo, cout)).astype(np.float32),
+    )
+
+
+def _rx_conv(kind, c, requant, relu, res, dtype=jnp.float32):
+    _, _, _, _, _, cout, k, s, p = kind
+    mod = RxQuantConv(features=cout, kernel_size=(k, k), strides=(s, s),
+                      padding=[(p, p), (p, p)], dtype=dtype)
+    params = {"params": {"kernel_q": jnp.asarray(c["kq"]), "w_scale": jnp.asarray(c["w_scale"]),
+                         "bias": jnp.asarray(c["bias"]), "in_scale": jnp.asarray(c["in_scale"])}}
+    residual = {None: None, "int8": (jnp.asarray(c["rq"]), jnp.asarray(c["rs"])),
+                "float": jnp.asarray(c["rf"])}[res]
+    out = mod.apply(params, (jnp.asarray(c["xq"]), jnp.asarray(c["in_scale"])),
+                    out_scale=jnp.asarray(c["out_scale"]) if requant else None,
+                    relu_out=relu, residual=residual)
+    return np.asarray(out[0] if requant else out)
+
+
+def _port_conv(kind, c, requant, relu, res, dtype=torch.float32):
+    _, _, _, _, _, _, k, s, p = kind
+    t = {key: torch.from_numpy(np.asarray(v)) for key, v in c.items()}
+    weight = pack_weight(t["kq"].permute(3, 2, 0, 1))
+    residual = {None: None, "int8": t["rq"], "float": t["rf"]}[res]
+    return int8_conv(t["xq"], weight, t["w_scale"] * t["in_scale"], t["bias"], k, s, p,
+                     residual=residual, residual_scale=t["rs"] if res == "int8" else None,
+                     relu=relu, inv_out_scale=(1.0 / t["out_scale"]) if requant else None,
+                     out_dtype=dtype)
+
+
+@pytest.mark.parametrize("kind", CONV_KINDS, ids=[k[0] for k in CONV_KINDS])
+def test_int8_conv_sums_equal_rxtpu(kind):
+    """The f64 conv's int32 sums are rxtpu's int8 conv's, exactly."""
+    _, _, _, _, _, _, k, s, p = kind
+    c = _conv_case(kind, 0)
+    want = jax.lax.conv_general_dilated(
+        jnp.asarray(c["xq"]), jnp.asarray(c["kq"]), (s, s), [(p, p), (p, p)],
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    got = int8_conv_sums(torch.from_numpy(c["xq"]),
+                         pack_weight(torch.from_numpy(c["kq"]).permute(3, 2, 0, 1)), k, s, p)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the largest sum ResNet-50 can form, 127^2 * 4608, is exact in float64
+    big = torch.full((1, 3, 3, 512), -127, dtype=torch.int8)
+    wbig = torch.full((1, 9 * 512), 127, dtype=torch.int8)
+    assert int(int8_conv_sums(big, wbig, 3, 1, 0)) == -127 * 127 * 4608
+
+
+@pytest.mark.parametrize("kind", CONV_KINDS, ids=[k[0] for k in CONV_KINDS])
+def test_int8_conv_reference_matches_rxtpu_quantconv(kind):
+    """Every epilogue against rxtpu's QuantConv on the same int8 operands,
+    applied op by op (no jit, so XLA contracts nothing into an FMA).
+    Measured over these and 3 more seeds per case (203,776 int8 outputs):
+    float outputs bit-equal, no int8 output off. Under jit XLA's CPU may
+    contract the dequant's multiply-add, which the port never does: the
+    int8 bound allows FLIP_SHARE of the outputs off by one."""
+    flips = total = 0
+    for seed, (requant, relu, res) in enumerate(EPILOGUES):
+        c = _conv_case(kind, seed)
+        want = _rx_conv(kind, c, requant, relu, res)
+        got = _port_conv(kind, c, requant, relu, res).numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if requant:
+            diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            assert diff.max() <= 1
+            flips, total = flips + int((diff > 0).sum()), total + diff.size
+            assert np.abs(want).max() == 127 and (want == 0).any()  # clip and zero both hit
+        else:
+            np.testing.assert_array_equal(got, want)
+    assert flips <= FLIP_SHARE * total
+
+
+def test_int8_conv_bf16_output_and_ties_match_rxtpu():
+    """The last block's bf16 output, and requantize inputs that land on .5
+    ties (scale 1, bias 0.5 or -0.5, out scale 1: exact whatever the
+    contraction) round half to even, as jnp.round."""
+    kind = CONV_KINDS[2]
+    c = _conv_case(kind, 5)
+    want = _rx_conv(kind, c, False, True, "int8", jnp.bfloat16)
+    got = _port_conv(kind, c, False, True, "int8", torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    up = np.abs(got.float().numpy() - np.asarray(want, np.float32))
+    assert (up <= 2.0 ** -8 * np.abs(np.asarray(want, np.float32))).all()  # one bf16 ulp
+    c = _conv_case(kind, 6)
+    c["xq"] = (c["xq"] // 32).astype(np.int8)   # small sums: ties inside the clip range
+    c["kq"] = (c["kq"] // 64).astype(np.int8)
+    cout = c["bias"].shape[0]
+    c["w_scale"] = np.ones(cout, np.float32)
+    c["in_scale"] = np.float32(1.0)
+    c["out_scale"] = np.float32(1.0)
+    c["bias"] = np.where(np.arange(cout) % 2 == 0, 0.5, -0.5).astype(np.float32)
+    want = _rx_conv(kind, c, True, False, None)
+    got = _port_conv(kind, c, True, False, None).numpy()
+    np.testing.assert_array_equal(got, want)
+    acc = int8_conv_sums(torch.from_numpy(c["xq"]),
+                         pack_weight(torch.from_numpy(c["kq"]).permute(3, 2, 0, 1)), 3, 1, 1)
+    v = acc.numpy() + c["bias"]
+    tie = (np.abs(v) < 127) & (np.abs(v - np.trunc(v)) == 0.5)
+    assert tie.mean() > 0.9  # nearly every output is a tie, both ways of even
+    np.testing.assert_array_equal(got[tie], np.round(v[tie]))
+
+
+def test_int8_conv_argument_checks():
+    x = torch.zeros(1, 5, 5, 8, dtype=torch.int8)
+    w = torch.zeros(4, 72, dtype=torch.int8)
+    one = torch.ones(4)
+    with pytest.raises(ValueError, match="weight"):
+        int8_conv(x, w[:, :70], one, one, 3, 1, 1)
+    with pytest.raises(ValueError, match="x must be int8"):
+        int8_conv(x.float(), w, one, one, 3, 1, 1)
+    with pytest.raises(ValueError, match="residual_scale"):
+        int8_conv(x, w, one, one, 3, 1, 1, residual=torch.zeros(1, 5, 5, 4, dtype=torch.int8))
+    with pytest.raises(ValueError, match="residual must be"):
+        int8_conv(x, w, one, one, 3, 1, 1, residual=torch.zeros(1, 5, 5, 3))
+    with pytest.raises(ValueError, match="out_dtype"):
+        int8_conv(x, w, one, one, 3, 1, 1, out_dtype=torch.float16)
+    out = int8_conv(x, w, one, one, 3, 2, 1, inv_out_scale=torch.tensor(2.0))
+    assert out.dtype == torch.int8 and tuple(out.shape) == (1, 3, 3, 4)
+
+
+def test_quant_max_pool_matches_rxtpu():
+    rng = np.random.default_rng(3)
+    for shape in ((2, 9, 7, 5), (1, 16, 16, 64), (3, 4, 5, 3)):
+        q = rng.integers(-127, 128, shape, dtype=np.int8)
+        q[0, 0] = -127  # a corner of minima: the pad must not win
+        want, ws = rx_quant_max_pool((jnp.asarray(q), jnp.float32(0.25)))
+        got, gs = quant_max_pool((torch.from_numpy(q), torch.tensor(0.25)))
+        assert got.dtype == torch.int8 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert float(gs) == float(ws)
+
+
+# ---------------------------------------------------------------------------
+# calibration, quantization and the predict step against rxtpu
+# ---------------------------------------------------------------------------
+
+def _cfg(backbone):
+    return Config(data=DataConfig(path_data="x", crop_size=CROP, src_size=SRC),
+                  model=ModelConfig(backbone=backbone, nb_classes=CLASSES, pretrained=False,
+                                    size_features=16, compute_dtype="float32", head="mlp"),
+                  train=TrainConfig(), experiment_id="q")
+
+
+def _batch(rng, n=4):
+    return {"images": rng.integers(0, 256, (n, 6, 6, SRC, SRC), dtype=np.uint8),
+            "mean": rng.uniform(0.3, 0.5, (n, 6)).astype(np.float32),
+            "std": rng.uniform(0.15, 0.25, (n, 6)).astype(np.float32)}
+
+
+def _jax(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _torch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@pytest.fixture(scope="module", params=["resnet18", "resnet50"])
+def quant_setup(request):
+    """rxtpu's model with random BN statistics (so the folds are not trivial),
+    its calibration on two batches and its prepared int8 tree, and the port's
+    model with the same weights."""
+    cfg = _cfg(request.param)
+    model = build_model(cfg)
+    state, _ = create_train_state(cfg, model, steps_per_epoch=1)
+    v = randomize_flax({"params": state.params, "batch_stats": state.batch_stats}, 1)
+    state = state.replace(params=v["params"], batch_stats=v["batch_stats"])
+    rng = np.random.default_rng(0)
+    calib, test = [_batch(rng), _batch(rng)], _batch(rng)
+    qstats = rx_calibrate(model, state, [_jax(b) for b in calib], CROP)
+    port = TwoSitesNN(request.param, nb_classes=CLASSES, size_features=16)
+    port.load_state_dict(from_flax(jax.device_get(state.params),
+                                   jax.device_get(state.batch_stats)))
+    return dict(model=model, state=state, qstats=jax.device_get(qstats),
+                qvars=rx_prepare_quantized(model, state, qstats), port=port.eval(),
+                calib=calib, test=test, arch=request.param)
+
+
+def test_calibrate_matches_rxtpu(quant_setup):
+    s = quant_setup
+    got = calibrate(s["port"], [_torch(b) for b in s["calib"]], CROP, torch.float32)
+    want = qstats_from_flax(s["qstats"])
+    assert sorted(got) == sorted(want)
+    assert "conv_init" in got and "stage2_block1.conv_proj" in got
+    for name in want:
+        for key in ("in_absmax", "out_absmax"):
+            np.testing.assert_allclose(float(got[name][key]), float(want[name][key]),
+                                       rtol=1e-5, err_msg=f"{name} {key}")
+    assert min(float(e["in_absmax"]) for e in got.values()) > 0
+
+
+def test_quantize_variables_bit_equal_to_rxtpu(quant_setup):
+    """The same f32 folded weights and stats give the same int8 tree: rxtpu's
+    ``quantize_variables`` run op by op (its jitted ``prepare_quantized``
+    may reassociate the fold, ``tests/test_quant.py:94-96``)."""
+    s = quant_setup
+    folded = fold_variables(s["state"].params, s["state"].batch_stats)
+    want = from_flax_quantized(jax.device_get(
+        rx_quantize_variables(folded, s["qstats"]))["params"])
+    got = quantize_variables(from_flax(jax.device_get(folded)["params"]),
+                             qstats_from_flax(s["qstats"]))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key].numpy(), want[key].numpy(), err_msg=key)
+    assert got["backbone.conv_init.kernel_q"].shape == (64, 7 * 7 * 6)
+
+
+@pytest.mark.parametrize("transforms", ["identity", None])
+def test_quant_predictor_matches_rxtpu(quant_setup, transforms):
+    """rxtpu's prepared tree in the port: the CLI's path (``--tta none`` is
+    ``[identity]``: bf16 views, the stem quantizes) and quantize-at-source
+    (no transforms: K1 writes int8 views). Measured on these inputs: the
+    same argmax on every row, probabilities within 2.2e-6 (the f32 sums of
+    the head and of the epilogues' contraction); the limit allows requantize
+    flips."""
+    s = quant_setup
+    qnet = TwoSitesNN(s["arch"], nb_classes=CLASSES, size_features=16, quantized=True)
+    qnet.load_state_dict(from_flax_quantized(jax.device_get(s["qvars"])["params"]))
+    port_t = tta_transforms("none") if transforms else None
+    step = QuantPredictor(qnet.eval(), CROP, port_t)
+    views = step.front(*(torch.from_numpy(s["test"][k]) for k in ("images", "mean", "std")))
+    assert views.dtype == (torch.bfloat16 if transforms else torch.int8)
+    rx_step = make_quantized_predict_step(
+        s["model"], CROP, transforms=rx_tta_transforms("none") if transforms else None)
+    want = np.asarray(rx_step(s["qvars"], _jax(s["test"])))
+    got = step(_torch(s["test"])).numpy()
+    assert got.shape == want.shape == (4, CLASSES) and got.dtype == np.float32
+    assert want.max() - want.min() > 1e-3  # not a uniform softmax
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+def test_port_int8_tracks_its_f32_forward(quant_setup):
+    """The port's own calibration and quantization, against its f32 folded
+    predict step: ``tests/test_quant.py:108-109``'s limits."""
+    s = quant_setup
+    qstats = calibrate(s["port"], [_torch(b) for b in s["calib"]], CROP, torch.float32)
+    qnet = prepare_quantized(s["port"], qstats, torch.float32)
+    assert qnet.backbone.conv_init.kernel_q.dtype == torch.int8
+    assert qnet.head.fc1.weight.dtype == torch.float32
+    pq = QuantPredictor(qnet, CROP, tta_transforms("none"))(_torch(s["test"])).numpy()
+    pf = Predictor(s["port"], CROP, dtype=torch.float32)(_torch(s["test"])).numpy()
+    np.testing.assert_allclose(pq.sum(-1), 1.0, rtol=1e-5)
+    assert (pq.argmax(-1) == pf.argmax(-1)).mean() >= 0.75
+    assert np.abs(pq - pf).max() < 0.08
+
+
+def test_quant_guards(tmp_path, monkeypatch):
+    assert quantizable(TwoSitesNN("resnet18", nb_classes=4, size_features=8))
+    assert not quantizable(torch.nn.Linear(2, 2))
+    with pytest.raises(ValueError, match="resnet backbones with the mlp head"):
+        calibrate(torch.nn.Linear(2, 2), [])
+    model = TwoSitesNN("resnet18", nb_classes=4, size_features=8).eval()
+    with pytest.raises(ValueError, match="at least one batch"):
+        calibrate(model, [])
+    with pytest.raises(ValueError, match="average"):
+        QuantPredictor(model, average="mean")
+    # the CLI: --calib-batches below 1, and the heads and backbones not ported
+    from rxtpu_torch.data.synthetic import make_test_fixture, randomize_
+    from rxtpu_torch.train.checkpoint import save_checkpoint
+
+    fx = make_test_fixture(str(tmp_path), nb_classes=8, n_test_wells=4, img_size=32)
+    monkeypatch.chdir(tmp_path)
+    save_checkpoint("models/best_model_g.ckpt",
+                    randomize_(TwoSitesNN("resnet18", nb_classes=8), seed=0).state_dict())
+    argv = ["--experiment_id", "g", "--pack", fx["pack_dir"], "--data-dir", fx["data_dir"],
+            "--stats", fx["stats"], "--nb-classes", "8", "--backbone", "resnet18",
+            "--batch-size", "2", "--device", "cpu", "--quantize", "int8"]
+    with pytest.raises(SystemExit, match="--calib-batches must be >= 1"):
+        port_cli.main(argv + ["--calib-batches", "0"])
+    for flag in (["--head", "arcface"], ["--backbone", "densenet121"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            port_cli.main(argv + flag)
+    assert port_cli.main(argv + ["--calib-batches", "5"]) == 0  # more than the experiment has
+
+
+@pytest.mark.gpu
+def test_int8_conv_kernel_matches_plain_on_card():
+    """The CUDA kernel against the plain version on the card, bit for bit, on
+    every conv kind and epilogue, and the launch counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the int8_conv kernel runs only on the card")
+    for kind in CONV_KINDS:
+        for seed, (requant, relu, res) in enumerate(EPILOGUES):
+            c = {k: torch.from_numpy(np.asarray(v)).cuda()
+                 for k, v in _conv_case(kind, seed).items()}
+            _, _, _, _, _, _, k, s, p = kind
+            args = (c["xq"], pack_weight(c["kq"].permute(3, 2, 0, 1)),
+                    c["w_scale"] * c["in_scale"], c["bias"], k, s, p)
+            kw = dict(residual={None: None, "int8": c["rq"], "float": c["rf"]}[res],
+                      residual_scale=c["rs"] if res == "int8" else None, relu=relu,
+                      inv_out_scale=(1.0 / c["out_scale"]) if requant else None)
+            before = int8_conv.launches
+            got = int8_conv(*args, **kw)
+            want = int8_conv_reference(*args, **kw)
+            torch.cuda.synchronize()
+            assert int8_conv.launches == before + 1
+            bits = {torch.int8: torch.int8, torch.bfloat16: torch.int16, torch.float32: torch.int32}
+            assert got.dtype == want.dtype
+            assert torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype]))

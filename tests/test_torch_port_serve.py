@@ -211,7 +211,8 @@ import rxtpu_torch
 mods = [m.name for m in pkgutil.walk_packages(rxtpu_torch.__path__, "rxtpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode"} <= set(mods), mods
+assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode", "rxtpu_torch.ops.int8_conv",
+        "rxtpu_torch.models.quant", "rxtpu_torch.infer.quant"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
@@ -346,7 +347,8 @@ def test_slice_probs_do_not_depend_on_batch_size(trained_root):
 
 def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     """chip_smoke's test-phase run at a tiny size: the numpy-only fixture,
-    a seeded random checkpoint in the port's format, the CLI in bf16."""
+    a seeded random checkpoint in the port's format, the CLI in bf16 and
+    with ``--quantize int8``."""
     import json
 
     from rxtpu_torch.data.synthetic import make_test_fixture, randomize_
@@ -371,7 +373,14 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     plates = sub.id_code.str.split("_").str[1].astype(int)
     assert (pg[sub.sirna, 0] == plates).all()
     assert all(g.sirna.is_unique for _, g in sub.groupby(plates))  # one-to-one per plate
-    for flag in (["--quantize", "int8"], ["--head", "arcface"],
+    # --quantize int8: calibrated on the opening batches, the W8A8 test phase
+    os.makedirs("int8")
+    assert port_cli.main(argv + ["--quantize", "int8", "--out-dir", "int8"]) == 0
+    sub8 = pd.read_csv("int8/submission_fx.csv")
+    assert list(sub8.id_code) == list(sub.id_code)
+    assert (pg[sub8.sirna, 0] == plates).all()
+    assert all(g.sirna.is_unique for _, g in sub8.groupby(plates))
+    for flag in (["--head", "arcface"],
                  ["--assign-method", "greedy_jax"], ["--backbone", "densenet121"]):
         with pytest.raises(SystemExit, match="not ported"):
             port_cli.main(argv + flag)
