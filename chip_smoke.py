@@ -36,10 +36,16 @@ Phases, each ending the run with a non-zero exit when it fails:
    cp as K6.4's residual launch computes it, both taken in the order of the
    pipelined mainloop's sums epilogue; K8 (int8_conv) at ResNet-50's conv
    kinds (the stem 7x7/2 from 6 channels at 512^2, 1x1/1, 3x3/1, 3x3/2, the
-   1x1/2 projection, 2-4 views) and three ragged shapes, with and without
-   ReLU and an int8 or float residual, int8, bf16 and f32 outputs: bit-equal
-   to the plain version (the exact float64 sums on the card, cuDNN off),
-   two launches bit-equal, and inputs on exact .5 ties of the requantize;
+   1x1/2 projection, 2-4 views; 128-column tiles at Cout 256, 512, 2048) and
+   five ragged shapes (Cout 40, 72, 320 and 200, and a 513 x 511 stem), with
+   and without ReLU and an int8 or float residual, int8, bf16 and f32
+   outputs: bit-equal to the plain version (the exact float64 sums on the
+   card, cuDNN off), two launches bit-equal, and inputs on exact .5 ties of
+   the requantize; K8's stem entry (int8_stem_conv) from NCHW views at
+   [2, 6, 512, 512] and 513 x 511, bf16 and f32 (quantized in the kernel,
+   many on .5 ties, some clipped) and int8, every epilogue without a
+   residual bit-equal to its plain version over two launches, int8 views
+   giving the bf16 ones' output;
 3. training end to end through ``rxtpu_torch.cli.main`` at full width
    (ResNet-50 + MLP head, 1108 classes, G=3 views of 6x512^2, batch 16, bf16,
    crop 364) on a synthetic fixture: 2 epochs of 4 steps with validation,
@@ -87,9 +93,9 @@ Phases, each ending the run with a non-zero exit when it fails:
    writes the same bytes; (d) ``png2jpeg`` on a copy of the tree: one JPEG
    per PNG, each decoded by nvJPEG;
 4e. ``--quantize int8`` through ``rxtpu_torch.cli.main`` on phase 4's fixture
-   and checkpoint: K1 once per test and calibration batch (bf16 views; the
-   stem quantizes them), K8 53 times per test batch, a valid plate-leak
-   submission;
+   and checkpoint: K1 once per test and calibration batch (bf16 views; K8's
+   stem entry quantizes them), K8 53 times per test batch, a valid
+   plate-leak submission;
 4f. the int8 predict step on one full-width batch, calibrated on it: on
    the kernels (K1, K8) against the plain versions on the card, the
    backbone's bf16 features and the probabilities bit-equal; against the
@@ -131,7 +137,9 @@ Phases, each ending the run with a non-zero exit when it fails:
    int8 predict step (both views) beside the bf16 one (ms, views/s, memory,
    a profile), K8 at each of the forward's shapes beside its bound, its
    plain version, ``torch._int_mm`` (1x1 stride 1) and cuDNN's bf16 conv,
-   and the NHWC permute of the stem's input.
+   summed per conv kind beside the times of K8's first design (the stem's
+   with the quantize and permute that design ran before it), and the stem
+   entry from int8 views.
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
 phase 2's K6/K7 checks and the timing of every body's launches, device
@@ -1735,8 +1743,11 @@ K8_REPLACES = "rxtpu/models/quant.py:167"  # the XLA int8 conv (lax.conv_general
 K8_LAUNCHES = 53  # per ResNet-50 forward: the stem, 16 blocks x 3 convs, 4 projections
 # (label, N, H, W, Cin, Cout, kernel, stride, padding): ResNet-50's conv kinds at
 # their widths and the test size's planes, few views (the plain version's conv
-# runs in float64), then ragged shapes: odd H and W, M and Cout off the 128 x 64
-# tile, K = 294 off the 64-byte stage
+# runs in float64), then ragged shapes: odd H and W, M off the 128-row tile,
+# Cout off the 64- and 128-column tiles (40, 72; 320 leaves half a 128 tile;
+# 200 int8 bytes a row are no whole 16-byte chunks, so its int8 residual and
+# output go element by element), K = 294 off the 64-byte stage. Cout >= 128
+# takes 128-column tiles (256, 512, 2048, 320, 200 among these).
 K8_CHECKS = (
     ("stem 7x7/2", 2, 512, 512, 6, 64, 7, 2, 3),
     ("1x1/1 stage1 Conv_2", 2, 128, 128, 64, 256, 1, 1, 0),
@@ -1746,12 +1757,19 @@ K8_CHECKS = (
     ("1x1/1 stage4 Conv_2", 4, 16, 16, 512, 2048, 1, 1, 0),
     ("ragged 3x3/1", 3, 7, 5, 96, 40, 3, 1, 1),
     ("ragged 1x1/1", 1, 9, 11, 32, 72, 1, 1, 0),
+    ("ragged 1x1/1 Cout 320", 2, 24, 19, 128, 320, 1, 1, 0),
+    ("ragged 3x3/1 Cout 200", 2, 9, 13, 64, 200, 3, 1, 1),
     ("ragged stem", 1, 513, 511, 6, 64, 7, 2, 3),
 )
+# (label, N, H, W): the stem entry's NCHW views, 6 channels: the test shape and
+# a ragged one (odd rows, a row width not a multiple of 8, so the patch's
+# columns load element by element, and 257 output columns: a 1-pixel tile)
+K8_STEM_CHECKS = (("stem 7x7/2 NCHW", 2, 512, 512), ("ragged stem NCHW", 1, 513, 511))
 # (label, requantize, relu, residual): the forward's epilogues and the rest
 K8_EPILOGUES = (("int8 relu", True, True, None), ("int8 relu + int8 res", True, True, "int8"),
                 ("int8", True, False, None), ("bf16 relu + int8 res", False, True, "int8"),
                 ("bf16", False, False, None), ("f32 relu + f32 res", False, True, "float"))
+K8_STEM_EPILOGUES = [e for e in K8_EPILOGUES if e[3] is None]  # the stem has no residual
 
 
 def k8_operands(case, seed, dev):
@@ -1820,6 +1838,7 @@ def k8_phase2(dev):
               f"{k}x{k}/{s} pad {p}: mismatches (plain/repeat) {', '.join(results)}; "
               f"max|sum| {int(acc.abs().max())}")
         del ops, acc
+    worst = max(worst, k8_stem_phase2(dev))
     # .5 ties: small operands, scale 1, bias +-0.5 and out scale 1, so every
     # output o = sum +- 0.5 is exact and rounds half to even
     case = ("ties 3x3/1", 2, 64, 64, 64, 64, 3, 1, 1)
@@ -1842,6 +1861,64 @@ def k8_phase2(dev):
     if bad or ties < v.numel() // 2 or not even:
         fail("K8 rounds .5 ties otherwise than its plain version")
     return max(worst, err)
+
+
+def k8_stem_phase2(dev):
+    """Phase 2's K8 stem entry: NCHW views in bf16, f32 (quantized in the
+    kernel at in_scale 1/32, so many land on .5 ties and some clip) and int8
+    (``quantize`` of the same views), every epilogue bit-equal to the plain
+    version and over two launches, and the three inputs' outputs equal.
+    Returns max |kernel - plain|."""
+    import torch
+    from rxtpu_torch.ops import int8_conv as k8
+
+    worst = 0.0
+    for seed, (label, n, h, w) in enumerate(K8_STEM_CHECKS, start=len(K8_CHECKS)):
+        ops = k8_operands((label, n, h, w, 6, 64, 7, 2, 3), seed, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        in_scale = torch.tensor(1.0 / 32.0, device=dev)
+        xf = torch.randn(n, 6, h, w, device=dev, generator=gen) * 2.0
+        views = {"bf16": xf.to(torch.bfloat16), "f32": xf}
+        views["int8"] = k8.quantize(views["bf16"], in_scale)
+        weight = ops["w"]
+        packed = k8.pack_stem_weight(weight)
+        outs, results = {}, []
+        for kind, x in views.items():
+            bad_sum = rep_sum = 0
+            xq = x if x.dtype == torch.int8 else k8.quantize(x, in_scale)
+            acc = k8.int8_conv_sums(xq.permute(0, 2, 3, 1), weight, 7, 2, 3)  # the plain sums
+            for ep_label, requant, relu, res in K8_STEM_EPILOGUES:
+                kw = k8_kwargs(ops, requant, relu, res)
+                del kw["residual"], kw["residual_scale"]
+                before = k8.int8_conv.launches
+                out = k8.int8_stem_conv(x, packed, ops["scale"], ops["bias"], in_scale, **kw)
+                again = k8.int8_stem_conv(x, packed, ops["scale"], ops["bias"], in_scale, **kw)
+                ref = k8.epilogue(acc, ops["scale"], ops["bias"], None, None, relu,
+                                  kw["inv_out_scale"], kw["out_dtype"])
+                torch.cuda.synchronize()
+                bad, err = bitwise_diff(out, ref)
+                rep, _ = bitwise_diff(out, again)
+                worst = max(worst, err)
+                if k8.int8_conv.launches != before + 2:
+                    fail(f"K8 stem entry: int8_conv.launches moved by "
+                         f"{k8.int8_conv.launches - before}, not 2")
+                if bad or rep:
+                    fail(f"K8 {label} [{n},6,{h},{w}] {kind}, {ep_label}: {bad} outputs differ "
+                         f"from the plain version (max {err}), {rep} between two launches")
+                if kind == "bf16":
+                    outs[ep_label] = out
+                elif kind == "int8" and bitwise_diff(out, outs[ep_label])[0]:
+                    fail(f"K8 {label}: int8 views give another {ep_label} output than bf16 ones")
+                bad_sum, rep_sum = bad_sum + bad, rep_sum + rep
+            results.append(f"{kind} {bad_sum}/{rep_sum}")
+        ties = int((views["bf16"].float() * 32 % 1 == 0.5).sum())
+        clipped = int((views["bf16"].float().abs() * 32 > 127).sum())
+        print(f"{label} [{n},6,{h},{w}] -> [{n},{acc.shape[1]},{acc.shape[2]},64], "
+              f"{len(K8_STEM_EPILOGUES)} epilogues each: mismatches (plain/repeat) "
+              f"{', '.join(results)}; bf16 views on .5 ties {ties}, clipped "
+              f"{clipped}; int8 views equal to bf16 ones on every epilogue")
+        del ops, views, acc
+    return worst
 
 
 def int8_batch(dev, seed):
@@ -1940,10 +2017,11 @@ def int8_forward_phase(dev, model, batch):
     hook = qnet.backbone.register_forward_hook(lambda mod, i, out: feats.append(out))
     runs = {}
     for label in ("kernels", "plain"):
-        saved = crop_norm.crop_normalize, k8.int8_conv
+        saved = crop_norm.crop_normalize, k8.int8_conv, k8.int8_stem_conv
         if label == "plain":  # eval_batch_normalize and QuantConv look them up in the modules
             crop_norm.crop_normalize = crop_norm.crop_normalize_reference
             k8.int8_conv = k8.int8_conv_reference
+            k8.int8_stem_conv = k8.int8_stem_conv_reference
         before = (saved[0].launches, saved[1].launches)
         try:
             t0 = time.perf_counter()
@@ -1952,7 +2030,7 @@ def int8_forward_phase(dev, model, batch):
             runs[label] = (probs, feats[-1], time.perf_counter() - t0,
                            (saved[0].launches - before[0], saved[1].launches - before[1]))
         finally:
-            crop_norm.crop_normalize, k8.int8_conv = saved
+            crop_norm.crop_normalize, k8.int8_conv, k8.int8_stem_conv = saved
     hook.remove()
     (pk, fk, tk, lk), (pp, fp, tp, lp) = runs["kernels"], runs["plain"]
     fbad, ferr = bitwise_diff(fk, fp)
@@ -1987,22 +2065,45 @@ def int8_forward_phase(dev, model, batch):
     return qstep, qstep_src, pstep
 
 
+# PERF.md's K8 rows and the times of K8's first design for them (an epilogue
+# stored element by element, the stem by a byte gather; its last chip run,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+K8_FIRST_MS = {"stem 7x7/2": 5.2879, "1x1/1": 7.5098, "1x1/1 + residual": 19.9773,
+              "3x3/1": 5.7264, "3x3/2": 1.2432, "1x1/2": 1.9911}
+K8_FIRST_STEP_MS = 41.736
+K8_FIRST_STEM_PREP_MS = 2.4417  # its quantize of the bf16 views and NHWC permute, outside K8
+
+
+def k8_kind(k, s, res):
+    if k == 7:
+        return "stem 7x7/2"
+    return f"{k}x{k}/{s}" + (" + residual" if res else "")
+
+
 def int8_work(key):
     """Bytes (the input pixels some tap reads, weights, scale and bias,
     residual, each read once; output written once) and int8 operations (two
     per multiply-add) of one K8 call. A 1x1/2 projection reads one pixel in
     four, and a pixel's channels (256 or more) are one contiguous run, so the
-    others are never fetched."""
-    n, h, w, cin, cout, k, s, p, res, out_bytes = key
+    others are never fetched. The stem reads its views at their own width
+    (bf16 views 2 bytes an element: the quantize is part of its work)."""
+    n, h, w, cin, cout, k, s, p, res, out_bytes, in_bytes = key
     ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
 
     def touched(size, out):  # input rows (or columns) that some tap reads
         return len({o * s - p + t for o in range(out) for t in range(k)} & set(range(size)))
 
     m, kk = n * ho * wo, k * k * cin
-    moved = (n * touched(h, ho) * touched(w, wo) * cin + cout * kk + 8 * cout
+    moved = (n * touched(h, ho) * touched(w, wo) * cin * in_bytes + cout * kk + 8 * cout
              + m * cout * (res + out_bytes))
     return moved, 2 * m * cout * kk
+
+
+def int8_bound_ms(key):
+    """K8's bound for one call: (ms, bytes ms, operations ms)."""
+    moved, ops = int8_work(key)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops
 
 
 def int8_timings(dev, qstep, qstep_src, pstep, batch, card):
@@ -2017,7 +2118,6 @@ def int8_timings(dev, qstep, qstep_src, pstep, batch, card):
     cuDNN's bf16 conv of the shape for the others."""
     import torch
     import torch.nn.functional as F
-    from rxtpu_torch.models.quant import quantize_to
     from rxtpu_torch.ops import int8_conv as k8
     from rxtpu_torch.ops.crop_norm import eval_batch_normalize
 
@@ -2042,45 +2142,64 @@ def int8_timings(dev, qstep, qstep_src, pstep, batch, card):
         if step is qstep:
             device_profile(lambda: step(batch), 3, "int8 predict steps", ev)
 
-    # the forward's K8 calls, one per distinct shape and epilogue, with counts
-    calls, real = {}, k8.int8_conv
+    # the forward's K8 calls, one per distinct shape and epilogue, with counts;
+    # the key: (N, H, W, Cin, Cout, kernel, stride, pad, residual bytes, output
+    # bytes, input bytes), the stem's from its NCHW views
+    calls, real, real_stem = {}, k8.int8_conv, k8.int8_stem_conv
+
+    def note(key, fn, args, kw):
+        if key not in calls:
+            calls[key] = [0, fn, args, kw]
+        calls[key][0] += 1
+
+    def epi_bytes(kw):
+        res = kw.get("residual")
+        return (0 if res is None else res.element_size(),
+                1 if kw.get("inv_out_scale") is not None else 2)
 
     def record(x, weight, scale, bias, kernel_size, stride=1, padding=0, **kw):
-        res = kw.get("residual")
-        out_bytes = 1 if kw.get("inv_out_scale") is not None else 2
-        key = (*x.shape, weight.shape[0], kernel_size, stride, padding,
-               0 if res is None else res.element_size(), out_bytes)
-        if key not in calls:
-            calls[key] = [0, (x, weight, scale, bias, kernel_size, stride, padding), kw]
-        calls[key][0] += 1
-        return real(x, weight, scale, bias, kernel_size, stride, padding, **kw)
+        args = (x.contiguous(), weight, scale, bias, kernel_size, stride, padding)
+        note((*x.shape, weight.shape[0], kernel_size, stride, padding, *epi_bytes(kw), 1),
+             "conv", args, kw)
+        return real(*args, **kw)
 
-    k8.int8_conv = record
+    def record_stem(x, weight, scale, bias, in_scale=None, **kw):
+        n, cin, h, w = x.shape
+        note((n, h, w, cin, weight.shape[0], 7, 2, 3, *epi_bytes(kw), x.element_size()),
+             "stem", (x, weight, scale, bias, in_scale), kw)
+        return real_stem(x, weight, scale, bias, in_scale, **kw)
+
+    k8.int8_conv, k8.int8_stem_conv = record, record_stem
     try:
         qstep(batch)
     finally:
-        k8.int8_conv = real
+        k8.int8_conv, k8.int8_stem_conv = real, real_stem
     if sum(c[0] for c in calls.values()) != K8_LAUNCHES:
         fail(f"one int8 forward made {sum(c[0] for c in calls.values())} K8 calls")
     tot = [0.0] * 7
-    for key, (count, args, kw) in calls.items():
-        n, h, w, cin, cout, k, s, p, res, out_bytes = key
-        x, weight = args[0].contiguous(), args[1]
-        ms = cuda_ms(lambda: k8.int8_conv(x, *args[1:], **kw), 10)
-        plain_ms = cuda_ms(lambda: k8.int8_conv_reference(x, *args[1:], **kw), 1, warmup=1)
+    rows = {}  # the conv kinds of PERF.md's K8 table: summed (ms, bound, _int_mm, cuDNN)
+    for key, (count, entry, args, kw) in calls.items():
+        n, h, w, cin, cout, k, s, p, res, out_bytes, in_bytes = key
+        kernel, plain = {"conv": (k8.int8_conv, k8.int8_conv_reference),
+                         "stem": (k8.int8_stem_conv, k8.int8_stem_conv_reference)}[entry]
+        ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, warmup=1)
         moved, ops = int8_work(key)
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
-        bnd = max(t_bytes, t_ops)
+        bnd, t_bytes, t_ops = int8_bound_ms(key)
         lib, mm_ms = "", None
         if k == 1 and s == 1:
-            a = x.reshape(-1, cin)
-            bt = weight.t()  # [K, Cout], column-major
+            a = args[0].reshape(-1, cin)
+            bt = args[1].t()  # [K, Cout], column-major
             mm_ms = cuda_ms(lambda: torch._int_mm(a, bt), 10)
             lib = f"torch._int_mm [{a.shape[0]},{cin}]x[{cin},{cout}] {mm_ms:.4f} ms; "
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last NCHW view
+        x, weight = args[:2]
+        if entry == "stem":  # NCHW views and packed weights
+            xb, weight = x.to(torch.bfloat16), k8.unpack_stem_weight(weight, cin)
+        else:
+            xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # channels-last NCHW view
         wb = weight.reshape(cout, k, k, cin).permute(0, 3, 1, 2).to(torch.bfloat16)
         conv_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=p), 10)
-        print(f"K8 x{count} [{n},{h},{w},{cin}] -> {cout} {k}x{k}/{s} pad {p} "
+        print(f"K8 x{count} {entry} [{n},{h},{w},{cin}] {x.dtype} -> {cout} {k}x{k}/{s} pad {p} "
               f"res {res}B out {out_bytes}B: {ms:.4f} ms (bound {bnd:.4f} ms by "
               f"{'bytes' if t_bytes >= t_ops else 'operations'}: {moved / 1e6:.1f} MB, "
               f"{ops / 1e12:.3f} TOP; {100 * bnd / ms:.1f}% of it, {ops / ms / 1e9:.1f} TOP/s), "
@@ -2089,20 +2208,39 @@ def int8_timings(dev, qstep, qstep_src, pstep, batch, card):
         yard = conv_ms if mm_ms is None else mm_ms
         for i, v in enumerate((ms, plain_ms, bnd, t_bytes, t_ops, yard, conv_ms)):
             tot[i] += count * v
+        row = rows.setdefault(k8_kind(k, s, res), [0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, ms, bnd, mm_ms or 0.0, conv_ms)):
+            row[i] += count * v
         del xb, wb
-    print(f"K8 per int8 predict step ({K8_LAUNCHES} launches): {tot[0]:.3f} ms, bound "
+    for kind_label, (count, ms, bnd, mm_ms, conv_ms) in rows.items():
+        lib = f", torch._int_mm {mm_ms:.4f} ms (K8 {ms / mm_ms:.2f}x)" if mm_ms else ""
+        was = K8_FIRST_MS[kind_label]
+        if kind_label == "stem 7x7/2":  # with the quantize and permute run before it then
+            was = f"{was} ms + {K8_FIRST_STEM_PREP_MS} ms = {was + K8_FIRST_STEM_PREP_MS:.4f}"
+            ratio = ms / (K8_FIRST_MS[kind_label] + K8_FIRST_STEM_PREP_MS)
+        else:
+            ratio = ms / was
+        print(f"K8 row {kind_label} x{count}: {ms:.4f} ms (first design: {was} ms, "
+              f"{ratio:.3f}x), bound {bnd:.4f} ms "
+              f"({100 * bnd / ms:.1f}%){lib}, cuDNN bf16 conv {conv_ms:.4f} ms "
+              f"(K8 {ms / conv_ms:.2f}x) [{card}]")
+    print(f"K8 per int8 predict step ({K8_LAUNCHES} launches): {tot[0]:.3f} ms (first design: "
+          f"{K8_FIRST_STEP_MS} ms, {tot[0] / K8_FIRST_STEP_MS:.3f}x), bound "
           f"{tot[2]:.3f} ms ({100 * tot[2] / tot[0]:.1f}%; bytes {tot[3]:.3f} ms, operations "
           f"{tot[4]:.3f} ms), plain {tot[1]:.3f} ms; library yardstick (torch._int_mm for "
           f"1x1/1, cuDNN bf16 conv for the rest) {tot[5]:.3f} ms; cuDNN bf16 conv of every "
           f"shape {tot[6]:.3f} ms [{card}]")
-    views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"], None)
-    scale = qstep.net.backbone.conv_init.in_scale
-    v8 = quantize_to(views, scale)[0].reshape(B * 6, 6, SRC, SRC)
-    vb = views.reshape(B * 6, 6, SRC, SRC)
-    perm_ms = cuda_ms(lambda: v8.permute(0, 2, 3, 1).contiguous(), 20)
-    quant_ms = cuda_ms(lambda: quantize_to(vb.permute(0, 2, 3, 1), scale)[0].contiguous(), 20)
-    print(f"the stem's NHWC permute of int8 [{B * 6},6,{SRC},{SRC}]: {perm_ms:.4f} ms; the CLI "
-          f"path's quantize of the bf16 views with that permute: {quant_ms:.4f} ms [{card}]")
+    # the stem on the quantize-at-source path's int8 views, beside the CLI path's bf16 ones
+    (key, (_, _, args, kw)), = [(k, c) for k, c in calls.items() if c[1] == "stem"]
+    views = eval_batch_normalize(batch["images"], batch["mean"], batch["std"], None,
+                                 quant_scale=args[4]).reshape(args[0].shape)
+    int8_ms = cuda_ms(lambda: k8.int8_stem_conv(views, *args[1:], **kw), 10)
+    print(f"K8 stem from int8 views (K1's int8 mode) {int8_ms:.4f} ms, bound "
+          f"{int8_bound_ms(key[:-1] + (1,))[0]:.4f} ms; "
+          f"from the CLI path's bf16 views: the stem row above (first design: "
+          f"{K8_FIRST_MS['stem 7x7/2']} ms on NHWC int8 and {K8_FIRST_STEM_PREP_MS} ms before it "
+          f"to quantize and permute) "
+          f"[{card}]")
     return tot
 
 
@@ -2149,7 +2287,7 @@ def main() -> int:
         entry = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:  # the kernel and its template arguments
-                m = re.search(r"\d+((?:[a-z]+_)*kernel)(I(?:L[ib]\d+E)+E)?", line)
+                m = re.search(r"\d+((?:[a-z][a-z0-9]*_)*kernel)(I(?:L[ib]\d+E)+E)?", line)
                 targs = re.findall(r"L[ib](\d+)E", (m and m.group(2)) or "")
                 entry = "" if m is None else m.group(1) + (f"<{','.join(targs)}>" if targs else "")
             elif "registers" in line or "spill" in line:

@@ -10,7 +10,8 @@ Symmetric, zero-point-free quantization (conv zero padding stays exact):
 Activations stay int8 between convs, NHWC: each conv's epilogue (dequant,
 bias, residual, ReLU, requantize to the next conv's scale) runs inside the
 conv's kernel K8 (``rxtpu_torch.ops.int8_conv``), and a residual branch reads
-the int8 tensor with its scale. Calibration (``rxtpu_torch.infer.quant``)
+the int8 tensor with its scale. The stem (``QuantStemConv``) reads the NCHW
+views and quantizes them inside K8. Calibration (``rxtpu_torch.infer.quant``)
 observes the BN-folded twin's convs with ``ConvObserver``. ``QuantPreNorm``
 (DenseNet's pre-activation BN) is not ported: DenseNet is not.
 """
@@ -32,9 +33,7 @@ Quantized = Tuple[torch.Tensor, torch.Tensor]  # (int8 NHWC tensor, its f32 scal
 def quantize_to(x: torch.Tensor, scale: torch.Tensor) -> Quantized:
     """A float tensor -> ``(int8, scale)`` at a calibrated scale: multiply by
     ``1/scale`` (f32), round half to even, clip to +-127."""
-    inv = (1.0 / scale).to(torch.float32)
-    q = torch.clamp(torch.round(x.to(torch.float32) * inv), -127.0, 127.0).to(torch.int8)
-    return q, scale
+    return k8.quantize(x, scale), scale
 
 
 def quant_max_pool(x: Quantized) -> Quantized:
@@ -91,6 +90,35 @@ class QuantConv(nn.Module):
                          self.kernel_size, self.stride, self.padding, residual=res,
                          residual_scale=res_scale, relu=relu_out, inv_out_scale=inv_out,
                          out_dtype=out_dtype)
+        return y if out_scale is None else (y, out_scale)
+
+
+class QuantStemConv(QuantConv):
+    """The stem's ``QuantConv`` (7x7/2, pad 3, Cin <= 8) on the NCHW views:
+    K8's stem entry (``int8_stem_conv``) quantizes float views at
+    ``in_scale`` inside the kernel, or takes int8 views already at it, so no
+    quantize or NHWC copy runs before it. ``kernel_stem`` (``kernel_q``
+    packed by ``pack_stem_weight``, ``[Cout, 7, 8, 8]``) is not in the state
+    dict: it is packed anew whenever one is loaded."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, k8.STEM_KERNEL, k8.STEM_STRIDE, k8.STEM_PAD)
+        self.register_buffer("kernel_stem", k8.pack_stem_weight(self.kernel_q), persistent=False)
+        self.register_load_state_dict_post_hook(QuantStemConv._pack)
+
+    @staticmethod
+    @torch.no_grad()
+    def _pack(module: "QuantStemConv", _incompatible) -> None:
+        module.kernel_stem.copy_(k8.pack_stem_weight(module.kernel_q))
+
+    def forward(self, x: torch.Tensor, out_scale: Optional[torch.Tensor] = None,
+                relu_out: bool = False, out_dtype: torch.dtype = torch.bfloat16):
+        """``x``: NCHW views, float (quantized at ``in_scale``) or int8 at
+        ``in_scale``; the output as ``QuantConv``'s, NHWC."""
+        inv_out = None if out_scale is None else (1.0 / out_scale).to(torch.float32)
+        y = k8.int8_stem_conv(x, self.kernel_stem, self.w_scale * self.in_scale, self.bias,
+                              self.in_scale, relu=relu_out, inv_out_scale=inv_out,
+                              out_dtype=out_dtype)
         return y if out_scale is None else (y, out_scale)
 
 

@@ -17,8 +17,9 @@ a 3x3/2 max pool padded 1, and features are the global mean.
 ``quantized=True`` is the W8A8 int8 inference variant
 (``rxtpu/models/resnet.py:164-281`` with ``quantized``): every conv is a
 ``QuantConv`` (``rxtpu_torch.models.quant``) on the int8 weights of
-``rxtpu_torch.infer.quant.prepare_quantized``, activations stay int8 and
-NHWC from the stem on, each conv's epilogue requantizes to the next conv's
+``rxtpu_torch.infer.quant.prepare_quantized``, the stem a ``QuantStemConv``
+that reads the NCHW views, activations stay int8 and NHWC from the stem's
+output on, each conv's epilogue requantizes to the next conv's
 ``in_scale``, and the last block emits the ``dtype`` the caller passes (the
 head's) before the global mean.
 ``fuse_blocks=True`` runs, in train mode, each run of consecutive stride-1
@@ -54,7 +55,7 @@ from torch import nn
 from rxtpu_torch.config import NB_CHANNELS
 from rxtpu_torch.models.fused import fused_bottleneck
 from rxtpu_torch.models.norm import BatchNorm
-from rxtpu_torch.models.quant import QuantConv, quant_max_pool
+from rxtpu_torch.models.quant import QuantConv, QuantStemConv, quant_max_pool
 
 
 def compute_dtype(param: torch.Tensor) -> torch.dtype:
@@ -175,7 +176,10 @@ class ResNet(nn.Module):
         self.stem_input = stem_input
         self.fuse_blocks = fuse_blocks
         self.quantized = quantized
-        self.conv_init = _conv_factory(folded, quantized)(in_channels, num_filters, 7, 2, 3)
+        if quantized:
+            self.conv_init = QuantStemConv(in_channels, num_filters)
+        else:
+            self.conv_init = _conv_factory(folded, quantized)(in_channels, num_filters, 7, 2, 3)
         self.bn_init = _norm_factory(folded or quantized)(num_filters)
         self.block_names = []
         channels = num_filters
@@ -224,9 +228,8 @@ class ResNet(nn.Module):
         blocks = [getattr(self, name) for name in self.block_names]
         if x.dtype != torch.int8:
             x = x.to(dtype)
-        # NHWC from here on: the stem conv's operand is made dense (a copy)
-        x = self.conv_init(x.permute(0, 2, 3, 1), out_scale=blocks[0].Conv_0.in_scale,
-                           relu_out=True)
+        # the stem reads the NCHW views (quantizing float ones); NHWC from its output on
+        x = self.conv_init(x, out_scale=blocks[0].Conv_0.in_scale, relu_out=True)
         x = quant_max_pool(x)
         for k, block in enumerate(blocks):
             nxt = blocks[k + 1].Conv_0.in_scale if k + 1 < len(blocks) else None

@@ -47,7 +47,8 @@ from rxtpu_torch.models.convert import from_flax, from_flax_quantized, qstats_fr
 from rxtpu_torch.models.quant import quant_max_pool
 from rxtpu_torch.models.twosites import TwoSitesNN
 from rxtpu_torch.ops.int8_conv import (
-    int8_conv, int8_conv_reference, int8_conv_sums, pack_weight,
+    int8_conv, int8_conv_reference, int8_conv_sums, int8_stem_conv, int8_stem_conv_reference,
+    pack_stem_weight, pack_weight, quantize,
 )
 from test_torch_port_models import randomize_flax
 
@@ -374,9 +375,30 @@ def test_quant_guards(tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_int8_conv_kernel_matches_plain_on_card():
     """The CUDA kernel against the plain version on the card, bit for bit, on
-    every conv kind and epilogue, and the launch counter."""
+    every conv kind and epilogue, and the stem entry from bf16 and int8 NCHW
+    views; the launch counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the int8_conv kernel runs only on the card")
+    bits = {torch.int8: torch.int8, torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    rng = np.random.default_rng(5)
+    for shape in ((2, 6, 64, 64), (1, 6, 37, 21)):
+        x = torch.from_numpy(rng.normal(0.0, 2.0, shape).astype(np.float32)).cuda()
+        kq = torch.from_numpy(rng.integers(-127, 128, (64, 294), dtype=np.int8)).cuda()
+        in_scale = torch.tensor(1.0 / 32.0, device="cuda")
+        scale = torch.full((64,), 2e-4, device="cuda")
+        bias = torch.linspace(-1.0, 1.0, 64, device="cuda")
+        views = x.to(torch.bfloat16)
+        for v in (views, quantize(views, in_scale)):
+            for requant, relu, _ in EPILOGUES[:4]:
+                args = (v, pack_stem_weight(kq), scale, bias, in_scale)
+                kw = dict(relu=relu, inv_out_scale=torch.tensor(4.0, device="cuda")
+                          if requant else None)
+                before = int8_conv.launches
+                got = int8_stem_conv(*args, **kw)
+                want = int8_stem_conv_reference(*args, **kw)
+                torch.cuda.synchronize()
+                assert int8_conv.launches == before + 1
+                assert torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype]))
     for kind in CONV_KINDS:
         for seed, (requant, relu, res) in enumerate(EPILOGUES):
             c = {k: torch.from_numpy(np.asarray(v)).cuda()
@@ -392,6 +414,5 @@ def test_int8_conv_kernel_matches_plain_on_card():
             want = int8_conv_reference(*args, **kw)
             torch.cuda.synchronize()
             assert int8_conv.launches == before + 1
-            bits = {torch.int8: torch.int8, torch.bfloat16: torch.int16, torch.float32: torch.int32}
             assert got.dtype == want.dtype
             assert torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype]))
