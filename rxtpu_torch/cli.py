@@ -20,9 +20,11 @@ line works for both:
 4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
    format): plate groups from ``train.csv``, predict each test experiment
    through ``{pack}/test.rxpack`` or its own image store with the BN-folded
-   model (or, with ``--quantize int8``, the W8A8 int8 model, calibrated once
-   on the first experiment's opening ``--calib-batches`` batches), mask by
-   plate, assign one class per row and write ``submission_{id}.csv``.
+   model (DenseNet-121 and the ArcFace head unfolded, on their running
+   statistics), or, with ``--quantize int8``, the W8A8 int8 model (ResNet or
+   DenseNet-121 with the MLP head), calibrated once on the first
+   experiment's opening ``--calib-batches`` batches; mask by plate, assign
+   one class per row and write ``submission_{id}.csv``.
 
 Flags whose path is not ported yet exit with a message that names them.
 
@@ -58,7 +60,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--image-ext", default="jpeg", choices=["jpeg", "png"])
     p.add_argument("--pack", default=None,
                    help="rxpack directory (raw or compressed); without it, the image tree")
-    p.add_argument("--backbone", default=None, help="resnet18|34|50|101|152")
+    p.add_argument("--backbone", default=None, help="resnet18|34|50|101|152|densenet121")
     p.add_argument("--head", default="mlp", choices=["mlp", "arcface"])
     p.add_argument("--pretrained-path", default=None)
     p.add_argument("--epochs", type=int, default=None)
@@ -78,7 +80,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="rxtpu's scanned predict window: accepted and ignored, the "
                         "port predicts one batch per step (the same numbers)")
     p.add_argument("--quantize", default="none", choices=["none", "int8"],
-                   help="int8: W8A8 int8 inference (resnet backbones, mlp head)")
+                   help="int8: W8A8 int8 inference (resnet backbones and densenet121, "
+                        "mlp head)")
     p.add_argument("--calib-batches", type=int, default=2,
                    help="test batches of the first experiment that calibrate --quantize int8")
     p.add_argument("--calibrate", action="store_true",
@@ -109,10 +112,6 @@ def _not_ported(args) -> Optional[str]:
     """The first flag of argv whose path is not ported yet, if any."""
     if args.debug and torch.device(args.device).type == "cpu":
         return "--debug on the CPU (local mode, DummyClassifier)"
-    if args.head != "mlp":
-        return f"--head {args.head}"
-    if args.backbone and not args.backbone.startswith("resnet"):
-        return f"--backbone {args.backbone}"
     if args.assign_method == "greedy_jax":
         return "--assign-method greedy_jax"
     if args.distributed or args.model_parallel != 1:
@@ -331,6 +330,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"Size test dataset: {len(test_rows)}")
 
     model = build_model(cfg)
+    use_int8 = args.quantize == "int8"
+    if use_int8:  # before the checkpoint loads: the model's arch decides
+        from rxtpu_torch.infer.quant import quantizable
+
+        if not quantizable(model):
+            raise SystemExit("--quantize int8 supports resnet backbones with the mlp head "
+                             f"and densenet121, got {cfg.model.backbone}/{cfg.model.head}")
+        if args.calib_batches < 1:
+            raise SystemExit("--calib-batches must be >= 1")
     model.load_state_dict(load_checkpoint(ckpt_path))
     model = model.to(device).eval()
 
@@ -370,15 +378,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # experiment wide
     pack_store = _store(cfg, idx_test_all, args.pack) if args.pack else None
     dtype = getattr(torch, cfg.model.compute_dtype)
-    use_int8 = args.quantize == "int8"
     if use_int8:
-        from rxtpu_torch.infer.quant import quantizable
-
-        if not quantizable(model):
-            raise SystemExit("--quantize int8 supports resnet backbones with the mlp head, "
-                             f"got {cfg.model.backbone}/{cfg.model.head}")
-        if args.calib_batches < 1:
-            raise SystemExit("--calib-batches must be >= 1")
         step = None  # built on the first experiment's calibration batches
     else:
         step = Predictor(model, args.test_crop, args.tta, args.tta_average, dtype=dtype)

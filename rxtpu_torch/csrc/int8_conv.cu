@@ -9,7 +9,8 @@
 //   o = float(acc) * scale[c] + bias[c]        scale = w_scale * in_scale, formed by the caller
 //   o = o + float(rq) * rs   or   o = o + r    an optional residual, int8 (with its scale) or f32
 //   o = max(o, 0)                              optional
-//   out = clip(rint(o * inv_out), -127, 127)   int8, or o as bf16 / f32 when there is no out scale
+//   out = clip(rint(o * inv_out[c]), -127, 127) int8, or o as bf16 / f32 when there is no out scale
+//                                              (inv_out a scalar, or one per output channel)
 //
 // x is NHWC int8 [n, h, w, cin], zero outside the image; w int8 [cout, kh*kw*cin]
 // ("K-major": one row of K per output channel, (ky, kx, ci) order); the output
@@ -39,8 +40,9 @@
 //   a phase on distinct banks). On the 1x1 convs with cin 64 a tile is one
 //   K step: loads, the epilogue's arithmetic and the stores bound them.
 // - The staged epilogue: with the first stages the block copies the tile's
-//   residual rows (cp.async, 16-byte chunks) and its columns' scale and bias
-//   into shared memory, so they arrive during the mainloop. Each thread then
+//   residual rows (cp.async, 16-byte chunks) and its columns' scale, bias and
+//   requantize scale (one for all, or DenseNet's one per channel) into shared
+//   memory, so they arrive during the mainloop. Each thread then
 //   takes its accumulators through the epilogue, in a body compiled for the
 //   launch's residual and output kinds (no branch on them per element),
 //   into a shared output tile over the ring; after one barrier the block
@@ -79,15 +81,16 @@ struct Out {
   const float* bias;       // [cout]
   const void* res;         // [m, cout] int8 or f32, or null
   const float* res_scale;  // scalar, for an int8 residual
-  const float* inv_out;    // scalar 1 / out_scale, for int8 output
+  const float* inv_out;    // 1 / out_scale for int8 output: a scalar, or [cout] (inv_vec)
   void* out;               // [m, cout]
   int m, cout;
   int res_kind;    // 0 none, 1 int8 with res_scale, 2 f32
   int out_kind;    // 0 bf16, 1 int8, 2 f32
   int relu;
+  int inv_vec;     // inv_out holds one scale per output channel (DenseNet's requantize)
   int res_vec;     // the residual's rows are whole 16-byte chunks (staged by cp.async)
   int out_vec;     // and the output's (the tile leaves in 16-byte chunks)
-  int prm_vec;     // scale and bias go by cp.async (cout % 4 == 0, 16-byte aligned)
+  int prm_vec;     // scale, bias (and inv_out's vector) by cp.async: cout % 4 == 0, 16-byte aligned
 };
 
 struct Params {
@@ -181,34 +184,40 @@ __device__ __forceinline__ void stage_residual(const Out& o, int8_t* sres, int m
   }
 }
 
-// The tile's columns' scale and bias and the two scalar scales into shared
-// memory, so the epilogue finds them there: prm[0, BN) scale, [BN, 2 BN)
-// bias, zero past cout; prm[2 BN] res_scale and prm[2 BN + 1] inv_out (zero
-// where the launch has none). By cp.async in 16-byte chunks where cout is a
-// multiple of 4 (prm_vec), else by plain loads and stores.
-__host__ __device__ constexpr int prm_bytes(int bn) { return (2 * bn + 4) * 4; }
+// The tile's columns' scale, bias and requantize scale, and the residual's
+// scalar scale, into shared memory, so the epilogue finds them there:
+// prm[0, BN) scale, [BN, 2 BN) bias, [2 BN, 3 BN) inv_out, zero past cout;
+// prm[3 BN] res_scale (zero where the launch has none). A scalar inv_out
+// fills its whole part; a vector (inv_vec) comes column by column, as scale
+// and bias do: by cp.async in 16-byte chunks where cout is a multiple of 4
+// (prm_vec), else by plain loads and stores.
+__host__ __device__ constexpr int prm_bytes(int bn) { return (3 * bn + 4) * 4; }
 
 template <int BN, int kThreads>
 __device__ __forceinline__ void stage_params(const Out& o, float* prm, int n0) {
+  const bool inv_col = o.out_kind == 1 && o.inv_vec;
+  const int parts = inv_col ? 3 : 2;  // scale, bias, and the inv_out vector
   if (o.prm_vec) {
-    for (int i = threadIdx.x; i < BN / 2; i += kThreads) {
-      const int half = i / (BN / 4);  // 0 scale, 1 bias
-      const int c = 4 * (i - half * (BN / 4));
-      const float* src = half ? o.bias : o.scale;
+    for (int i = threadIdx.x; i < parts * BN / 4; i += kThreads) {
+      const int part = i / (BN / 4);
+      const int c = 4 * (i - part * (BN / 4));
+      const float* src = part == 0 ? o.scale : part == 1 ? o.bias : o.inv_out;
       const bool ok = n0 + c < o.cout;
-      cp_async16(prm + half * BN + c, ok ? src + n0 + c : src, ok);
+      cp_async16(prm + part * BN + c, ok ? src + n0 + c : src, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < 2 * BN; i += kThreads) {
-      const int half = i / BN;
-      const int c = i - half * BN;
-      prm[i] = n0 + c < o.cout ? (half ? o.bias : o.scale)[n0 + c] : 0.0f;
+    for (int i = threadIdx.x; i < parts * BN; i += kThreads) {
+      const int part = i / BN;
+      const int c = i - part * BN;
+      const float* src = part == 0 ? o.scale : part == 1 ? o.bias : o.inv_out;
+      prm[i] = n0 + c < o.cout ? src[n0 + c] : 0.0f;
     }
   }
-  if (threadIdx.x == 0) {
-    prm[2 * BN] = o.res_kind == 1 ? *o.res_scale : 0.0f;
-    prm[2 * BN + 1] = o.out_kind == 1 ? *o.inv_out : 0.0f;
+  if (!inv_col) {
+    const float inv = o.out_kind == 1 ? *o.inv_out : 0.0f;
+    for (int c = threadIdx.x; c < BN; c += kThreads) prm[2 * BN + c] = inv;
   }
+  if (threadIdx.x == 0) prm[3 * BN] = o.res_kind == 1 ? *o.res_scale : 0.0f;
 }
 
 // The tile's epilogue, first half, for one residual kind kRes and output
@@ -235,13 +244,13 @@ __device__ __forceinline__ void epilogue_body(const Out& o, const int (&acc)[WM 
   const int g = lane >> 2;
   const int t = lane & 3;
   const bool relu = o.relu;
-  const float rs = prm[2 * BN];
-  const float inv = prm[2 * BN + 1];
+  const float rs = prm[3 * BN];
 #pragma unroll
   for (int ni = 0; ni < WN / 8; ++ni) {
     const int col = wn * WN + ni * 8 + 2 * t;
     const float2 sc = *reinterpret_cast<const float2*>(prm + col);
     const float2 bi = *reinterpret_cast<const float2*>(prm + BN + col);
+    const float2 inv = *reinterpret_cast<const float2*>(prm + 2 * BN + col);
 #pragma unroll
     for (int mi = 0; mi < WM / 16; ++mi) {
 #pragma unroll
@@ -262,9 +271,9 @@ __device__ __forceinline__ void epilogue_body(const Out& o, const int (&acc)[WM 
         v0 = relu && !(v0 > 0.0f) ? 0.0f : v0;
         v1 = relu && !(v1 > 0.0f) ? 0.0f : v1;
         int8_t* d = sout + r * opitch + col * ob;
-        if constexpr (kOut == 1) {  // round half to even, then clip: clip(rint(o * inv))
-          const int q0 = max(min(__float2int_rn(__fmul_rn(v0, inv)), 127), -127);
-          const int q1 = max(min(__float2int_rn(__fmul_rn(v1, inv)), 127), -127);
+        if constexpr (kOut == 1) {  // round half to even, then clip: clip(rint(o * inv[c]))
+          const int q0 = max(min(__float2int_rn(__fmul_rn(v0, inv.x)), 127), -127);
+          const int q1 = max(min(__float2int_rn(__fmul_rn(v1, inv.y)), 127), -127);
           *reinterpret_cast<char2*>(d) =
               make_char2(static_cast<signed char>(q0), static_cast<signed char>(q1));
         } else if constexpr (kOut == 0) {
@@ -438,7 +447,7 @@ __global__ void __launch_bounds__(2 * BN, 256 / BN) int8_conv_kernel(const Param
     if (s < k_tiles) load_stage(s, s);
     cp_async_commit();
   }
-  // after the first loads: its scalar loads stall thread 0 (they land with the next group)
+  // after the first loads: its scalar loads stall the threads that make them
   float* const prm = reinterpret_cast<float*>(smem + p.prm_offset);
   stage_params<BN, kThreads>(o, prm, n0);
 
@@ -681,7 +690,7 @@ __global__ void __launch_bounds__(kStemThreads, 2) int8_stem_kernel(const StemPa
     cp_async16(sw + r * kStemWPitch + c * 16, src, ok);
   }
   stage_tile(blockIdx.x);
-  stage_params<kStemBN, kStemThreads>(o, prm, n0);  // last: its scalar loads stall thread 0
+  stage_params<kStemBN, kStemThreads>(o, prm, n0);  // last: its scalar loads stall
   cp_async_commit();
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int tx = tile % p.tiles_x;
@@ -822,7 +831,7 @@ bool epilogue_ok(int res_kind, int out_kind) {
 
 Out make_out(const void* scale, const void* bias, const void* res, const void* res_scale,
              const void* inv_out, void* out, int64_t m, int cout, int res_kind, int out_kind,
-             int relu) {
+             int relu, int inv_vec) {
   Out o;
   o.scale = static_cast<const float*>(scale);
   o.bias = static_cast<const float*>(bias);
@@ -835,9 +844,11 @@ Out make_out(const void* scale, const void* bias, const void* res, const void* r
   o.res_kind = res_kind;
   o.out_kind = out_kind;
   o.relu = relu;
+  o.inv_vec = out_kind == 1 && inv_vec;
   o.res_vec = res_kind != 0 && (cout * res_bytes(res_kind)) % 16 == 0 && aligned16(res);
   o.out_vec = (cout * out_bytes(out_kind)) % 16 == 0 && aligned16(out);
-  o.prm_vec = cout % 4 == 0 && aligned16(scale) && aligned16(bias);
+  o.prm_vec = cout % 4 == 0 && aligned16(scale) && aligned16(bias) &&
+              (!o.inv_vec || aligned16(inv_out));
   return o;
 }
 
@@ -847,13 +858,14 @@ Out make_out(const void* scale, const void* bias, const void* res, const void* r
 // [cout, kh*kw*cin], 16-byte aligned; scale, bias f32 [cout]; res: null
 // (res_kind 0), int8 [n, ho, wo, cout] with res_scale a f32 scalar (1) or f32
 // [n, ho, wo, cout] (2); out [n, ho, wo, cout], out_kind 0 = bf16, 1 = int8
-// (inv_out a f32 scalar), 2 = f32. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess); invalid arguments return cudaErrorInvalidValue.
+// (inv_out a f32 scalar, or f32 [cout] when inv_vec), 2 = f32. Returns
+// cudaGetLastError() after the launch (0 = cudaSuccess); invalid arguments
+// return cudaErrorInvalidValue.
 extern "C" int rxtpu_int8_conv(const void* x, const void* weight, const void* scale,
                                const void* bias, const void* res, const void* res_scale,
                                const void* inv_out, void* out, int n, int h, int w, int cin,
                                int cout, int kh, int kw, int stride, int pad, int res_kind,
-                               int out_kind, int relu, void* stream) {
+                               int out_kind, int relu, int inv_vec, void* stream) {
   if (n < 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 16 != 0 || cout <= 0 || kh <= 0 ||
       kw <= 0 || stride <= 0 || pad < 0 || !epilogue_ok(res_kind, out_kind)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -869,7 +881,8 @@ extern "C" int rxtpu_int8_conv(const void* x, const void* weight, const void* sc
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(weight);
-  p.o = make_out(scale, bias, res, res_scale, inv_out, out, m, cout, res_kind, out_kind, relu);
+  p.o = make_out(scale, bias, res, res_scale, inv_out, out, m, cout, res_kind, out_kind, relu,
+                 inv_vec);
   p.h = h;
   p.w = w;
   p.cin = cin;
@@ -893,7 +906,8 @@ extern "C" int rxtpu_int8_stem_conv(const void* x, const void* weight, const voi
                                     const void* scale, const void* bias, const void* res,
                                     const void* res_scale, const void* inv_out, void* out,
                                     int n, int cin, int h, int w, int cout, int x_kind,
-                                    int res_kind, int out_kind, int relu, void* stream) {
+                                    int res_kind, int out_kind, int relu, int inv_vec,
+                                    void* stream) {
   if (n < 0 || cin <= 0 || cin > 8 || h <= 0 || w <= 0 || cout <= 0 || x_kind < 0 ||
       x_kind > 2 || (x_kind != 1 && inv_in == nullptr) || res_kind != 0 ||
       !epilogue_ok(res_kind, out_kind)) {
@@ -910,7 +924,8 @@ extern "C" int rxtpu_int8_stem_conv(const void* x, const void* weight, const voi
   p.x = x;
   p.wt = static_cast<const int8_t*>(weight);
   p.inv_in = static_cast<const float*>(inv_in);
-  p.o = make_out(scale, bias, res, res_scale, inv_out, out, m, cout, res_kind, out_kind, relu);
+  p.o = make_out(scale, bias, res, res_scale, inv_out, out, m, cout, res_kind, out_kind, relu,
+                 inv_vec);
   p.cin = cin;
   p.h = h;
   p.w = w;

@@ -11,7 +11,13 @@ Eval BN is ``y = x*mul + add`` with ``mul = weight/sqrt(var+eps)`` and
 
 ``fold`` gives the eval and predict steps their twin and the op in front
 of it: K1, or with ``fused_stem`` the kernel K5 and a twin that takes the
-stem's maps (rxtpu's ``_make_fused_stem_apply``).
+stem's maps (rxtpu's ``_make_fused_stem_apply``). A model that does not fold
+(DenseNet, or the ArcFace head) evaluates unfolded on K1's views, with its
+running statistics (``rxtpu/train/step.py:151-174``): an f32 copy in eval
+mode run under ``torch.autocast`` in the compute dtype (``Autocast``), so each
+BN forms ``mul`` and ``add`` in f32 from f32 parameters and casts only them,
+as rxtpu's does; casting the copy itself to bf16 would round the BN's weight
+and running variance before the ``rsqrt``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from rxtpu_torch.models.twosites import TwoSitesNN
 from rxtpu_torch.ops.crop_norm import eval_batch_normalize
@@ -36,7 +43,11 @@ _HEAD_PAIRS = (("head.bn1", "head.fc1"), ("head.bn2", "head.fc2"))
 
 
 def _affine(sd: Dict[str, torch.Tensor], bn: str):
-    mul = sd[f"{bn}.weight"].float() / torch.sqrt(sd[f"{bn}.running_var"].float() + EPS)
+    """The eval BN's f32 (mul, add), as rxtpu forms them: the square root
+    correctly rounded (taken in f64; torch's f32 sqrt on the CPU is not
+    always), so both packages give the same bits."""
+    root = torch.sqrt((sd[f"{bn}.running_var"].float() + EPS).double()).float()
+    mul = sd[f"{bn}.weight"].float() / root
     add = sd[f"{bn}.bias"].float() - sd[f"{bn}.running_mean"].float() * mul
     return mul, add
 
@@ -73,20 +84,41 @@ def foldable(model) -> bool:
             and model.arch["head"] == "mlp")
 
 
-def _twin(model: TwoSitesNN, sd: Dict[str, torch.Tensor], stem_input: bool) -> TwoSitesNN:
+def _twin(model: TwoSitesNN, sd: Dict[str, torch.Tensor], folded: bool = True,
+          stem_input: bool = False) -> TwoSitesNN:
     # the twin is eval-only: never fused (rxtpu/train/step.py:162,195)
-    folded = TwoSitesNN(**{**model.arch, "fuse_blocks": False}, folded=True,
-                        stem_input=stem_input)
-    folded.load_state_dict(sd)
+    twin = TwoSitesNN(**{**model.arch, "fuse_blocks": False}, folded=folded,
+                      stem_input=stem_input)
+    twin.load_state_dict(sd)
     device = next(model.parameters()).device
-    return folded.to(device).eval()
+    return twin.to(device).eval()
+
+
+class Autocast(nn.Module):
+    """``net`` (f32 parameters) computing in ``dtype``: under ``torch.autocast``
+    for bf16 or f16, as it is for f32."""
+
+    def __init__(self, net: nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.net, self.dtype = net, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        low = self.dtype in (torch.bfloat16, torch.float16)
+        with torch.autocast(x.device.type, dtype=self.dtype, enabled=low):
+            return self.net(x)
+
+
+@torch.no_grad()
+def unfolded_twin(model: TwoSitesNN, dtype: torch.dtype) -> Autocast:
+    """An eval-mode f32 copy of ``model`` (same device) computing in ``dtype``."""
+    return Autocast(_twin(model, model.state_dict(), folded=False), dtype)
 
 
 @torch.no_grad()
 def fold_for_inference(model: TwoSitesNN) -> TwoSitesNN:
     """A ``folded=True`` twin of ``model`` (eval mode, same device) holding
     the folded weights."""
-    return _twin(model, fold_state_dict(model.state_dict()), stem_input=False)
+    return _twin(model, fold_state_dict(model.state_dict()))
 
 
 @torch.no_grad()
@@ -96,7 +128,8 @@ def fold(model: TwoSitesNN, crop_size: Optional[int], dtype: torch.dtype,
     mean, std))`` are the logits of a raw batch.
 
     Unfused, ``front`` is K1 (bf16 views, center-cropped to ``crop_size``)
-    and ``twin`` the folded model in ``dtype``. With ``fused_stem``, ``front``
+    and ``twin`` the folded model in ``dtype`` or, for a model that does not
+    fold, ``unfolded_twin``. With ``fused_stem``, ``front``
     is K5 (the stem's maps in ``dtype``) and ``twin`` the folded model with
     ``stem_input=True``. K5 takes the stem's folded bias in f32, as rxtpu
     passes it: from the folded state dict, before the twin's cast rounds it.
@@ -105,8 +138,9 @@ def fold(model: TwoSitesNN, crop_size: Optional[int], dtype: torch.dtype,
     (``rxtpu/train/step.py:190``).
     """
     if not fused_stem:
-        return (fold_for_inference(model).to(dtype),
-                functools.partial(eval_batch_normalize, crop_size=crop_size))
+        twin = fold_for_inference(model).to(dtype) if foldable(model) \
+            else unfolded_twin(model, dtype)
+        return twin, functools.partial(eval_batch_normalize, crop_size=crop_size)
     if not foldable(model):
         raise ValueError("fused_stem=True needs a BN-foldable model (resnet backbone + "
                          f"mlp head); got {type(model).__name__} "

@@ -2,9 +2,10 @@
 ``rxtpu/train/step.py`` and of ``rxtpu/infer/tta.py``).
 
 One predict step: raw uint8 batch -> K1 normalize (bf16 views, full size
-unless ``crop_size``) -> the BN-folded ``TwoSitesNN`` in the compute dtype ->
-f32 softmax, optionally averaged over dihedral TTA variants (probabilities
-or logits). With ``fused_stem=True`` the kernel K5 runs crop, normalize and
+unless ``crop_size``) -> the BN-folded ``TwoSitesNN`` in the compute dtype (a
+model that does not fold, DenseNet or the ArcFace head, unfolded under
+autocast: ``rxtpu_torch.infer.fold.unfolded_twin``) -> f32 softmax,
+optionally averaged over dihedral TTA variants (probabilities or logits). With ``fused_stem=True`` the kernel K5 runs crop, normalize and
 the whole stem on the raw batch and the twin goes on from the stem's maps
 (no TTA: its transforms act on the views). ``predict_dataset`` drains a
 test ``Pipeline`` and drops the padding rows by their empty ``id_codes``.
@@ -54,7 +55,8 @@ class Predictor:
 
     ``model`` is an unfolded ``TwoSitesNN`` with f32 parameters; the twin
     is folded in f32 and then cast to ``dtype`` (bf16 compute with f32
-    parameters, as rxtpu). ``fused_stem=True`` raises ``ValueError`` with
+    parameters, as rxtpu), or for a model that does not fold, an f32 copy
+    run under autocast in ``dtype``. ``fused_stem=True`` raises ``ValueError`` with
     TTA transforms (``rxtpu/train/step.py:302``) or a model that does not
     fold.
     """

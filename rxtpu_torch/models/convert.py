@@ -7,15 +7,20 @@ returns a flat state_dict whose names are the port's module names
 - conv kernels HWIO -> OIHW;
 - Dense kernels (in, out) -> Linear weights (out, in);
 - BN ``scale``/``bias`` -> ``weight``/``bias``, batch stats ``mean``/``var``
-  -> ``running_mean``/``running_var``.
+  -> ``running_mean``/``running_var``;
+- the ArcFace head's ``weight`` ([size_features, nb_classes]) as it is.
 
-A BN-folded tree (convs with a bias) converts the same way.
-``from_flax_quantized`` converts rxtpu's prepared int8 tree (``qvars``,
+A BN-folded tree (convs with a bias) and DenseNet's tree convert the same
+way. ``from_flax_quantized`` converts rxtpu's prepared int8 tree (``qvars``,
 ``rxtpu/infer/quant.py:prepare_quantized``) to the state dict of a
 ``TwoSitesNN(quantized=True)``: HWIO ``kernel_q`` -> K-major ``[O, kh*kw*I]``,
-the scales and biases as they are. ``qstats_from_flax`` flattens rxtpu's
-calibration tree to the port's ``{conv name: {in_absmax, out_absmax}}``
-(the per-channel ranges, DenseNet's, are left out).
+the scales (scalars, or DenseNet's ``in_scale_vec`` and vector
+``out_scale``s), biases and ``QuantPreNorm`` affines (``mul``, ``add``) as
+they are; DenseNet's unfolded head comes with its ``batch_stats``.
+``qstats_from_flax`` flattens rxtpu's calibration tree to the port's: each
+conv's name to its ``{in_absmax, in_absmax_ch, out_absmax, out_absmax_ch}``,
+and DenseNet's segment observations (``stem_absmax``, ``transition{i}_absmax``
+and their ``_ch``) by their own names.
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ def _leaf(key: str, value: Any, stats: bool):
         return "weight", (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
     if key == "scale":
         return "weight", a
-    if key == "bias":
-        return "bias", a
+    if key in ("bias", "weight"):
+        return key, a
     raise KeyError(f"unexpected flax leaf {key!r}")
 
 
@@ -60,8 +65,10 @@ def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
     return out
 
 
-def from_flax_quantized(qparams: Mapping) -> Dict[str, torch.Tensor]:
-    """rxtpu ``qvars["params"]`` -> the state dict of ``TwoSitesNN(quantized=True)``."""
+def from_flax_quantized(qparams: Mapping, batch_stats: Optional[Mapping] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """rxtpu ``qvars["params"]`` (and, for DenseNet, ``qvars["batch_stats"]``)
+    -> the state dict of ``TwoSitesNN(quantized=True)``."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str):
@@ -76,21 +83,25 @@ def from_flax_quantized(qparams: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(qparams["backbone"], "backbone.")
     _walk(qparams["head"], "head.", False, out)
+    if batch_stats:
+        _walk(batch_stats["head"], "head.", True, out)
     return out
 
 
-def qstats_from_flax(qstats: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """rxtpu's ``calibrate`` tree -> the port's per-conv absmax stats."""
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
+def qstats_from_flax(qstats: Mapping) -> Dict[str, Any]:
+    """rxtpu's ``calibrate`` tree -> the port's absmax stats."""
+    out: Dict[str, Any] = {}
 
     def walk(tree: Mapping, prefix: str):
         if "in_absmax" in tree:
-            out[prefix[:-1]] = {k: torch.tensor(np.asarray(tree[k], np.float32))
-                                for k in ("in_absmax", "out_absmax")}
+            out[prefix[:-1]] = {k: torch.tensor(np.asarray(v, np.float32))
+                                for k, v in tree.items()}
             return
         for key, value in tree.items():
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{key}.")
+            else:  # a segment observation (DenseNet's stem and transitions)
+                out[prefix + key] = torch.tensor(np.asarray(value, np.float32))
 
     walk(qstats["backbone"], "")
     return out

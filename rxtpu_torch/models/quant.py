@@ -12,8 +12,14 @@ bias, residual, ReLU, requantize to the next conv's scale) runs inside the
 conv's kernel K8 (``rxtpu_torch.ops.int8_conv``), and a residual branch reads
 the int8 tensor with its scale. The stem (``QuantStemConv``) reads the NCHW
 views and quantizes them inside K8. Calibration (``rxtpu_torch.infer.quant``)
-observes the BN-folded twin's convs with ``ConvObserver``. ``QuantPreNorm``
-(DenseNet's pre-activation BN) is not ported: DenseNet is not.
+observes the BN-folded twin's convs (DenseNet's unfolded model, with its
+segment observation points) with ``ConvObserver``.
+
+DenseNet quantizes activations per channel: its convs carry an
+``in_scale_vec`` (baked into ``kernel_q`` as ``W * s_in[i]``, so their
+runtime ``in_scale`` is 1) and a ``[Cout]`` ``out_scale``, and its
+pre-activation BNs are ``QuantPreNorm``s, in plain torch (rxtpu runs them as
+an XLA elementwise fusion, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -53,18 +59,21 @@ class QuantConv(nn.Module):
     (K-major, (ky, kx, ci) order), ``w_scale`` and ``bias`` f32 ``[Cout]``,
     ``in_scale`` and ``out_scale`` f32 scalars (the conv's calibrated input
     and output ranges over 127; the projections requantize at their
-    ``out_scale``).
+    ``out_scale``). ``per_channel=True`` (DenseNet's convs) adds
+    ``in_scale_vec`` f32 ``[Cin]`` and makes ``out_scale`` f32 ``[Cout]``.
 
     ``x``: NHWC, a float tensor (quantized here at ``in_scale``), a bare int8
     tensor already at ``in_scale`` (quantize-at-source), or an ``(int8,
-    scale)`` pair a producer quantized. ``out_scale`` requantizes the output
+    scale)`` pair a producer quantized; a vector scale there is per input
+    channel, baked into ``kernel_q``, so the dequant takes ``w_scale`` alone
+    (``rxtpu/models/quant.py:144-150``). ``out_scale`` requantizes the output
     and returns an ``(int8, out_scale)`` pair; without it the output is
     ``out_dtype``. ``relu_out`` and ``residual`` (a pair or a float tensor,
     added before the ReLU) fold into the epilogue.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, per_channel: bool = False):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         k = kernel_size * kernel_size * in_channels
@@ -72,7 +81,10 @@ class QuantConv(nn.Module):
         self.register_buffer("w_scale", torch.ones(out_channels))
         self.register_buffer("bias", torch.zeros(out_channels))
         self.register_buffer("in_scale", torch.ones(()))
-        self.register_buffer("out_scale", torch.ones(()))
+        if per_channel:
+            self.register_buffer("in_scale_vec", torch.ones(in_channels))
+        self.register_buffer("out_scale",
+                             torch.ones(out_channels) if per_channel else torch.ones(()))
 
     def forward(self, x: Union[torch.Tensor, Quantized],
                 out_scale: Optional[torch.Tensor] = None, relu_out: bool = False,
@@ -86,7 +98,9 @@ class QuantConv(nn.Module):
             xq, in_scale = quantize_to(x, self.in_scale)
         res, res_scale = residual if isinstance(residual, tuple) else (residual, None)
         inv_out = None if out_scale is None else (1.0 / out_scale).to(torch.float32)
-        y = k8.int8_conv(xq, self.kernel_q, self.w_scale * in_scale, self.bias,
+        # a vector scale is per input channel, inside kernel_q
+        scale = self.w_scale if in_scale.ndim == 1 else self.w_scale * in_scale
+        y = k8.int8_conv(xq, self.kernel_q, scale, self.bias,
                          self.kernel_size, self.stride, self.padding, residual=res,
                          residual_scale=res_scale, relu=relu_out, inv_out_scale=inv_out,
                          out_dtype=out_dtype)
@@ -94,15 +108,18 @@ class QuantConv(nn.Module):
 
 
 class QuantStemConv(QuantConv):
-    """The stem's ``QuantConv`` (7x7/2, pad 3, Cin <= 8) on the NCHW views:
+    """The stem's ``QuantConv`` (7x7/2, pad 3, Cin <= 8) on the NCHW views
+    (``out_channel_scale=True``: DenseNet's ``[Cout]`` ``out_scale``):
     K8's stem entry (``int8_stem_conv``) quantizes float views at
     ``in_scale`` inside the kernel, or takes int8 views already at it, so no
     quantize or NHWC copy runs before it. ``kernel_stem`` (``kernel_q``
     packed by ``pack_stem_weight``, ``[Cout, 7, 8, 8]``) is not in the state
     dict: it is packed anew whenever one is loaded."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, out_channel_scale: bool = False):
         super().__init__(in_channels, out_channels, k8.STEM_KERNEL, k8.STEM_STRIDE, k8.STEM_PAD)
+        if out_channel_scale:
+            self.out_scale = torch.ones(out_channels)
         self.register_buffer("kernel_stem", k8.pack_stem_weight(self.kernel_q), persistent=False)
         self.register_load_state_dict_post_hook(QuantStemConv._pack)
 
@@ -122,26 +139,76 @@ class QuantStemConv(QuantConv):
         return y if out_scale is None else (y, out_scale)
 
 
+class QuantPreNorm(nn.Module):
+    """DenseNet's pre-activation BN and ReLU on an int8 state, with an optional
+    requantize (``rxtpu/models/quant.py:198-236``): ``(q, svec)`` (int8 NHWC
+    and its per-channel scale vector) -> ``z = relu(q * (svec * mul) + add)``
+    in f32, the product ``svec * mul`` formed first, as rxtpu does; then
+    ``(quantize(z, out_scale), out_scale)`` or, without ``out_scale`` (the
+    last norm before the head), ``z``. Buffers ``mul`` and ``add`` (f32
+    ``[C]``) are the eval BN's affine, from
+    ``rxtpu_torch.infer.quant.quantize_densenet_backbone``."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.register_buffer("mul", torch.ones(num_features))
+        self.register_buffer("add", torch.zeros(num_features))
+
+    def forward(self, x: Quantized, out_scale: Optional[torch.Tensor] = None):
+        q, svec = x
+        z = torch.relu(q.to(torch.float32) * (svec * self.mul) + self.add)
+        return z if out_scale is None else quantize_to(z, out_scale)
+
+
+class Observe(nn.Identity):
+    """A named observation point of a forward (DenseNet's stored segments):
+    the identity, which ``ConvObserver`` hooks to record ``tag`` (the absmax)
+    and ``tag + "_ch"`` (per channel, axis 1)."""
+
+    def __init__(self, tag: str):
+        super().__init__()
+        self.tag = tag
+
+
+def _absmax(t: torch.Tensor):
+    """(absmax, absmax per channel of axis 1), f32."""
+    a = t.detach().abs().to(torch.float32)
+    return a.amax(), a.amax(dim=[d for d in range(a.ndim) if d != 1])
+
+
 class ConvObserver:
-    """The observed forward of calibration (rxtpu's ``ObservedConv``): forward
-    hooks on every ``nn.Conv2d`` of ``module`` record the absmax of the conv's
-    input and output as f32 scalars, on the tensors the module computes,
-    max-reduced across calls. ``stats`` maps each conv's name in ``module``
-    (``conv_init``, ``stage1_block1.Conv_0``, ...) to ``{"in_absmax",
-    "out_absmax"}``. Use as a context manager; leaving it removes the hooks."""
+    """The observed forward of calibration (rxtpu's ``ObservedConv`` and
+    DenseNet's segment sows): forward hooks on every ``nn.Conv2d`` of
+    ``module`` record the absmax of the conv's input and output, as f32
+    scalars and per channel, on the tensors the module computes, and every
+    ``Observe`` point its input's; all max-reduced across calls. ``stats``
+    maps each conv's name in ``module`` (``conv_init``,
+    ``stage1_block1.Conv_0``, ...) to ``{"in_absmax", "in_absmax_ch",
+    "out_absmax", "out_absmax_ch"}``, and each point's tag (``stem_absmax``,
+    ...) and tag ``_ch`` to a tensor. Use as a context manager; leaving it
+    removes the hooks."""
 
     def __init__(self, module: nn.Module):
-        self.stats: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._handles = [conv.register_forward_hook(functools.partial(self._record, name))
-                         for name, conv in module.named_modules()
-                         if isinstance(conv, nn.Conv2d)]
+        self.stats: Dict[str, Union[torch.Tensor, Dict[str, torch.Tensor]]] = {}
+        self._handles = []
+        for name, mod in module.named_modules():
+            if isinstance(mod, nn.Conv2d):
+                self._handles.append(mod.register_forward_hook(
+                    functools.partial(self._record_conv, name)))
+            elif isinstance(mod, Observe):
+                self._handles.append(mod.register_forward_hook(self._record_point))
 
-    def _record(self, name, _conv, inputs, output):
-        seen = {"in_absmax": inputs[0].detach().abs().amax().to(torch.float32),
-                "out_absmax": output.detach().abs().amax().to(torch.float32)}
+    def _record_conv(self, name, _conv, inputs, output):
+        (a, a_ch), (b, b_ch) = _absmax(inputs[0]), _absmax(output)
+        seen = {"in_absmax": a, "in_absmax_ch": a_ch, "out_absmax": b, "out_absmax_ch": b_ch}
         old = self.stats.get(name)
         self.stats[name] = seen if old is None else {
             k: torch.maximum(old[k], v) for k, v in seen.items()}
+
+    def _record_point(self, point, inputs, _output):
+        for tag, v in zip((point.tag, point.tag + "_ch"), _absmax(inputs[0])):
+            old = self.stats.get(tag)
+            self.stats[tag] = v if old is None else torch.maximum(old, v)
 
     def close(self) -> None:
         for handle in self._handles:

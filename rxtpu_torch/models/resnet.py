@@ -40,7 +40,8 @@ matmuls), so elementwise ops simply run in the dtype of what they receive
 the bf16 matmul instead of after it. ``init_weights`` draws rxtpu's
 initial distributions (not its bits): He normal over fan-out for convs,
 flax's LeCun truncated normal and zero biases for linears, BN scale one
-and bias zero, and a zero scale on each block's last BN.
+and bias zero, and a zero scale on each residual block's last BN.
+``make_backbone("densenet121")`` is ``rxtpu_torch.models.densenet``'s.
 """
 
 from __future__ import annotations
@@ -252,10 +253,21 @@ _ARCHS = {
 
 
 def make_backbone(arch: str, folded: bool = False, stem_input: bool = False,
-                  fuse_blocks: bool = False, quantized: bool = False) -> ResNet:
+                  fuse_blocks: bool = False, quantized: bool = False) -> nn.Module:
+    """A ResNet, or DenseNet-121 (``rxtpu/models/resnet.py:337-345``): its
+    ``fuse_blocks`` is dropped (bottleneck fusion is ResNet's) and
+    ``folded`` or ``stem_input`` raise ``ValueError`` (BN folding and the
+    fused stem are ResNet's)."""
+    if arch == "densenet121":
+        from rxtpu_torch.models.densenet import densenet121
+
+        if folded:
+            raise ValueError("densenet121 does not support BN folding")
+        if stem_input:
+            raise ValueError("densenet121 does not support the fused stem")
+        return densenet121(quantized=quantized)
     if arch not in _ARCHS:
-        raise ValueError(
-            f"backbone {arch!r} is not ported (ported: {sorted(_ARCHS)})")
+        raise ValueError(f"unknown backbone {arch!r}")
     stage_sizes, block_cls = _ARCHS[arch]
     return ResNet(stage_sizes, block_cls, folded=folded, stem_input=stem_input,
                   fuse_blocks=fuse_blocks, quantized=quantized)
@@ -265,12 +277,14 @@ def make_backbone(arch: str, folded: bool = False, stem_input: bool = False,
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """rxtpu's initial distributions, in place, from ``generator`` (CPU).
 
-    Convs: normal with std sqrt(2 / fan_out) (``rxtpu/models/resnet.py:179``);
-    linears: flax's default, LeCun truncated normal (std sqrt(1 / fan_in)
-    / 0.8796, cut at two std) and zero biases (``rxtpu/models/heads.py:35``);
-    BN: scale one, bias zero, running mean zero and variance one, except the
-    last BN of each residual branch, whose scale starts at zero
-    (``rxtpu/models/resnet.py:74,122``).
+    Convs: normal with std sqrt(2 / fan_out) (``rxtpu/models/resnet.py:179``,
+    ``rxtpu/models/densenet.py:136-139``); linears: flax's default, LeCun
+    truncated normal (std sqrt(1 / fan_in) / 0.8796, cut at two std) and
+    zero biases (``rxtpu/models/heads.py:35``); the ArcFace head's class
+    weights its own way (``ArcFaceHead.init_weight_``); BN: scale one, bias
+    zero, running mean zero and variance one, except the last BN of each
+    residual branch, whose scale starts at zero
+    (``rxtpu/models/resnet.py:74,122``; DenseNet has none such).
     """
     for mod in model.modules():
         if isinstance(mod, nn.Conv2d):
@@ -290,6 +304,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.zero_()
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
+        elif hasattr(mod, "init_weight_"):
+            mod.init_weight_(generator)
     for mod in model.modules():
         if isinstance(mod, BottleneckBlock) and isinstance(mod.BatchNorm_2, BatchNorm):
             mod.BatchNorm_2.weight.zero_()

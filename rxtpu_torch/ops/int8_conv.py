@@ -7,7 +7,8 @@ f32 op by op, ``acc*scale[c] + bias[c]`` (``scale = w_scale * in_scale``,
 formed once by the caller), plus an optional residual (an int8 tensor with
 its scale, ``+ rq*rs``, or a float tensor), an optional ReLU, and either a
 requantize ``clip(round(o * inv_out), -127, 127)`` to int8 (``inv_out =
-1/out_scale``, half to even) or a bf16/f32 output.
+1/out_scale``, half to even; a scalar, or one per output channel, as
+DenseNet's per-channel activation scales need) or a bf16/f32 output.
 
 ``int8_conv`` launches the hand-written CUDA kernel
 ``rxtpu_torch/csrc/int8_conv.cu`` (an implicit GEMM on ``mma.sync`` s8,
@@ -149,7 +150,11 @@ def _check_epilogue(device, out_shape, scale, bias, residual, residual_scale,
     for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32 or tuple(t.shape) != (cout,):
             raise ValueError(f"{name} must be float32 [{cout}], got {t.dtype} {tuple(t.shape)}")
-    scalars = [("inv_out_scale", inv_out_scale)]
+    if inv_out_scale is not None and (inv_out_scale.dtype != torch.float32 or (
+            inv_out_scale.numel() != 1 and tuple(inv_out_scale.shape) != (cout,))):
+        raise ValueError(f"inv_out_scale must be a float32 scalar or [{cout}], got "
+                         f"{inv_out_scale.dtype} {tuple(inv_out_scale.shape)}")
+    scalars = []
     if residual is not None:
         if tuple(residual.shape) != tuple(out_shape):
             raise ValueError(f"residual must be {list(out_shape)}, got {tuple(residual.shape)}")
@@ -189,7 +194,7 @@ def _check(x, weight, scale, bias, kh, kw, stride, padding, residual, residual_s
 
 
 # the C entry points: (pointers, ints), then the stream
-_SIGNATURES = {"rxtpu_int8_conv": (8, 12), "rxtpu_int8_stem_conv": (9, 9)}
+_SIGNATURES = {"rxtpu_int8_conv": (8, 13), "rxtpu_int8_stem_conv": (9, 10)}
 
 
 def _kernel(name):
@@ -222,17 +227,18 @@ def _launch(name, x, out_shape, pointers, sizes, scale, bias, residual, residual
         else:
             residual, res_kind = residual.to(torch.float32).contiguous(), 2
         res_ptr = residual.data_ptr()
-    inv_ptr = None
+    inv_ptr, inv_vec = None, 0
     if inv_out_scale is not None:
         out_dtype = torch.int8
-        inv_out_scale = inv_out_scale.reshape(()).contiguous()
+        inv_vec = int(inv_out_scale.numel() != 1)  # one scale per output channel
+        inv_out_scale = inv_out_scale.reshape(-1 if inv_vec else ()).contiguous()
         inv_ptr = inv_out_scale.data_ptr()
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel(name)(*pointers, scale.data_ptr(), bias.data_ptr(), res_ptr, rs_ptr,
                             inv_ptr, out.data_ptr(), *sizes, res_kind, _KINDS[out_dtype],
-                            int(relu), stream)
+                            int(relu), inv_vec, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     _counter.launches += 1
@@ -247,7 +253,8 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor, bias: 
               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x int8 [N, H, W, Cin], weight int8 [Cout, kh*kw*Cin], scale/bias f32
     [Cout] -> [N, Ho, Wo, Cout]: int8 when ``inv_out_scale`` (a f32 scalar
-    tensor) is given, else ``out_dtype`` (bf16 or f32). ``residual``: int8
+    tensor, or f32 [Cout]: one requantize scale per output channel) is
+    given, else ``out_dtype`` (bf16 or f32). ``residual``: int8
     with ``residual_scale`` (a f32 scalar tensor), or float, of the output's
     shape. Square stride and padding, as ResNet's convs.
 

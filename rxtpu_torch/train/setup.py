@@ -18,6 +18,7 @@ def build_model(cfg: Config) -> TwoSitesNN:
         backbone=cfg.model.backbone, nb_classes=cfg.model.nb_classes,
         size_features=cfg.model.size_features, dropout=cfg.model.dropout,
         head=cfg.model.head, control_calibration=cfg.model.control_calibration,
+        arcface_margin=cfg.model.arcface_margin, arcface_scale=cfg.model.arcface_scale,
         fuse_blocks=bool(cfg.model.fuse_blocks),  # None (auto) is off, as in rxtpu
     )
 
@@ -35,15 +36,19 @@ def create_train_state(cfg: Config, model: TwoSitesNN, steps_per_epoch: int,
     init_weights(model, generator)
     if cfg.model.pretrained_path:
         from rxtpu_torch.models.pretrained import (
-            _RESNET_ARCH, load_torch_state_dict, port_torch_resnet,
+            _RESNET_ARCH, load_torch_state_dict, port_torch_densenet121, port_torch_resnet,
         )
 
-        if cfg.model.backbone not in _RESNET_ARCH:
-            raise ValueError(f"pretrained porting supports {sorted(_RESNET_ARCH)}, "
-                             f"not {cfg.model.backbone!r}")
         sd = load_torch_state_dict(cfg.model.pretrained_path)
-        model.load_state_dict(port_torch_resnet(sd, model.state_dict(),
-                                                arch=cfg.model.backbone))
+        if cfg.model.backbone in _RESNET_ARCH:
+            ported = port_torch_resnet(sd, model.state_dict(), arch=cfg.model.backbone)
+        elif cfg.model.backbone == "densenet121":
+            ported = port_torch_densenet121(sd, model.state_dict())
+        else:
+            raise ValueError(f"pretrained porting supports "
+                             f"{sorted(_RESNET_ARCH) + ['densenet121']}, "
+                             f"not {cfg.model.backbone!r}")
+        model.load_state_dict(ported)
     model.to(device)
     lr = resolve_lr(cfg, n_devices)
     schedule = make_schedule(lr, cfg.train.nb_epochs, steps_per_epoch, cfg.train.scheduler)

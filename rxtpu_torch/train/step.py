@@ -3,14 +3,16 @@
 The train step: per-step generators seeded by ``(seed, step)`` (as rxtpu's
 ``fold_in(base_key, step)``, so a resumed run draws the same numbers), the
 augmentation on the raw uint8 batch (K2-K4 for ``shear``), the forward in
-the compute dtype under ``torch.autocast``, the f32 cross-entropy, the
-backward, the masked weight decay and the SGD update. The augmentation has
+the compute dtype under ``torch.autocast`` (with the labels, so the ArcFace
+head's margin logits feed the loss and the accuracy, as in rxtpu), the f32
+cross-entropy, the backward, the masked weight decay and the SGD update. The augmentation has
 no gradient: it acts on the input before the model. Metrics: ``loss``,
 ``accuracy``, ``grad_norm``, ``grad_norm/{backbone,head}`` (of the raw
 gradients) and the ``lr`` this step used, as 0-dim tensors on the device.
 
 The eval step: K1 center crop + normalize (``eval_batch_normalize``, bf16
-views), the BN-folded twin in the compute dtype, then exact sums
+views), the BN-folded twin in the compute dtype (a model that does not fold
+evaluates unfolded, on its running statistics), then exact sums
 ``loss_sum``, ``correct`` and ``count`` over the valid rows. With
 ``fused_stem=True`` the kernel K5 runs crop, normalize and the whole stem on
 the raw batch, and the twin goes on from the stem's maps
@@ -97,7 +99,7 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
         model.set_dropout_generator(drop_gen)
         state.optimizer.zero_grad(set_to_none=True)
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
-            logits = model(views)
+            logits = model(views, labels=labels)
         logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
         loss = F.cross_entropy(logits, labels)
         loss.backward()
@@ -127,7 +129,7 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
 
 
 class EvalStep:
-    """The eval step over the BN-folded twin of ``model`` as it is now; build
+    """The eval step over the BN-folded (or unfolded) twin of ``model`` as it is now; build
     a new one after the weights change. ``fused_stem=True`` needs a foldable
     model (``ValueError`` otherwise)."""
 

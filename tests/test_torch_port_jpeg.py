@@ -307,8 +307,7 @@ def test_cli_refuses_png_without_pack():
     parse = port_cli.build_argparser().parse_args
     for argv in (["--image-ext", "png"], ["--image-ext", "png", "--pack", "packs"], []):
         assert port_cli._not_ported(parse(argv + ["--device", "cpu"])) is None
-    assert "--head arcface" in port_cli._not_ported(parse(["--head", "arcface",
-                                                             "--image-ext", "png"]))
+    assert "--profile" in port_cli._not_ported(parse(["--profile", "--image-ext", "png"]))
 
 
 def test_nvjpeg_reference_is_rxtpu_decode():

@@ -13,7 +13,15 @@
   carried across by ``from_flax_quantized``), with TTA transforms (the
   CLI's path: bf16 views, the stem quantizes) and without (K1 writes int8
   views), for resnet18 and resnet50; the port's own int8 path against its
-  f32 forward within ``tests/test_quant.py``'s limits; the CLI's guards.
+  f32 forward within ``tests/test_quant.py``'s limits; the CLI's guards;
+- DenseNet-121's int8 (blocks 2/2/2/2, crop 32 of 48^2 sources): K8's
+  plain version with a per-channel requantize against rxtpu's ``QuantConv``
+  with a vector ``out_scale`` at DenseNet's conv kinds (the stem, 1x1 from
+  Cin 992, 3x3 to Cout 32, the transition's float output), fed a
+  per-channel ``(int8, scale vector)`` pair; ``QuantPreNorm``;
+  ``calibrate`` with every per-channel and segment range;
+  ``quantize_densenet_backbone`` bit-equal; ``QuantPredictor`` on rxtpu's
+  DenseNet ``qvars`` with and without transforms.
 
 The kernel runs only on a card: the ``gpu`` test holds it against the plain
 version there. Shapes follow ``tests/test_quant.py``: crop 24 of 32^2
@@ -33,23 +41,27 @@ from rxtpu.infer import calibrate as rx_calibrate
 from rxtpu.infer import make_quantized_predict_step
 from rxtpu.infer import prepare_quantized as rx_prepare_quantized
 from rxtpu.infer import quantize_variables as rx_quantize_variables
+from rxtpu.infer.quant import quantize_densenet_backbone as rx_quantize_densenet_backbone
 from rxtpu.infer.fold import fold_variables
 from rxtpu.infer.tta import tta_transforms as rx_tta_transforms
 from rxtpu.models.quant import QuantConv as RxQuantConv
+from rxtpu.models.quant import QuantPreNorm as RxQuantPreNorm
 from rxtpu.models.quant import quant_max_pool as rx_quant_max_pool
 from rxtpu.train import build_model, create_train_state
 from rxtpu_torch import cli as port_cli
 from rxtpu_torch.infer.predict import Predictor, tta_transforms
 from rxtpu_torch.infer.quant import (
-    QuantPredictor, calibrate, prepare_quantized, quantizable, quantize_variables,
+    QuantPredictor, calibrate, prepare_quantized, quantizable, quantize_densenet_backbone,
+    quantize_variables,
 )
 from rxtpu_torch.models.convert import from_flax, from_flax_quantized, qstats_from_flax
-from rxtpu_torch.models.quant import quant_max_pool
+from rxtpu_torch.models.quant import QuantPreNorm, quant_max_pool
 from rxtpu_torch.models.twosites import TwoSitesNN
 from rxtpu_torch.ops.int8_conv import (
     int8_conv, int8_conv_reference, int8_conv_sums, int8_stem_conv, int8_stem_conv_reference,
     pack_stem_weight, pack_weight, quantize,
 )
+from test_torch_port_densenet import shallow_densenet
 from test_torch_port_models import randomize_flax
 
 CROP, SRC, CLASSES = 24, 32, 7
@@ -353,7 +365,8 @@ def test_quant_guards(tmp_path, monkeypatch):
         calibrate(model, [])
     with pytest.raises(ValueError, match="average"):
         QuantPredictor(model, average="mean")
-    # the CLI: --calib-batches below 1, and the heads and backbones not ported
+    # the CLI: --calib-batches below 1, the flags not ported yet, and the
+    # ArcFace head, which int8 does not support (rxtpu/cli.py:479-484)
     from rxtpu_torch.data.synthetic import make_test_fixture, randomize_
     from rxtpu_torch.train.checkpoint import save_checkpoint
 
@@ -366,10 +379,246 @@ def test_quant_guards(tmp_path, monkeypatch):
             "--batch-size", "2", "--device", "cpu", "--quantize", "int8"]
     with pytest.raises(SystemExit, match="--calib-batches must be >= 1"):
         port_cli.main(argv + ["--calib-batches", "0"])
-    for flag in (["--head", "arcface"], ["--backbone", "densenet121"]):
+    for flag in (["--assign-method", "greedy_jax"], ["--profile"], ["--distributed"]):
         with pytest.raises(SystemExit, match="not ported"):
             port_cli.main(argv + flag)
+    with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
+                                         "densenet121, got resnet18/arcface"):
+        port_cli.main(argv + ["--head", "arcface"])
     assert port_cli.main(argv + ["--calib-batches", "5"]) == 0  # more than the experiment has
+
+
+# ---------------------------------------------------------------------------
+# DenseNet-121's int8: K8 with a per-channel requantize, QuantPreNorm, the
+# calibration, the quantized tree and the predict step against rxtpu
+# ---------------------------------------------------------------------------
+
+# (label, N, H, W, Cin, Cout, kernel, stride, padding, output): DenseNet's conv
+# kinds the ResNet ones lack, fed a per-channel (int8, scale vector) pair
+DENSENET_KINDS = [
+    ("stem 7x7/2 to 64", 2, 21, 18, 6, 64, 7, 2, 3, "int8 relu"),
+    ("1x1 Cin 992 to 128", 2, 5, 4, 992, 128, 1, 1, 0, "int8 relu"),
+    ("3x3 128 to Cout 32", 2, 9, 7, 128, 32, 3, 1, 1, "int8"),
+    ("transition 1x1 256 to 128", 2, 8, 6, 256, 128, 1, 1, 0, "float"),
+]
+D_CROP, D_SRC = 32, 48
+
+
+def _vector_case(kind, seed):
+    c = _conv_case(kind[:9], seed)
+    rng = np.random.default_rng(100 + seed)
+    cout = kind[5]
+    c["in_scale"] = np.float32(1.0)  # a vector-scale pair: the scales live in kernel_q
+    c["svec"] = rng.uniform(0.5, 2.0, kind[4]).astype(np.float32) / 127.0
+    c["w_scale"] = (c["w_scale"] / np.sqrt(kind[6] ** 2 * kind[4])).astype(np.float32)
+    c["out_vec"] = rng.uniform(0.3, 3.0, cout).astype(np.float32) / 127.0
+    return c
+
+
+@pytest.mark.parametrize("kind", DENSENET_KINDS, ids=[k[0] for k in DENSENET_KINDS])
+def test_int8_conv_vector_requantize_matches_rxtpu(kind):
+    """K8's plain version with ``inv_out_scale`` one per output channel against
+    rxtpu's ``QuantConv`` with a vector ``out_scale``, on a pair whose vector
+    scale makes ``in_scale`` 1 (``rxtpu/models/quant.py:144-150``); the
+    transition's float output in f32 and bf16. Measured: no int8 output off;
+    the bound allows FLIP_SHARE of them off by one."""
+    _, _, _, _, _, cout, k, s, p, out = kind
+    flips = total = 0
+    for seed in range(3):
+        c = _vector_case(kind, seed)
+        mod = RxQuantConv(features=cout, kernel_size=(k, k), strides=(s, s),
+                          padding=[(p, p), (p, p)], dtype=jnp.float32)
+        params = {"params": {key: jnp.asarray(c[name]) for key, name in
+                             (("kernel_q", "kq"), ("w_scale", "w_scale"), ("bias", "bias"),
+                              ("in_scale", "in_scale"))}}
+        pair = (jnp.asarray(c["xq"]), jnp.asarray(c["svec"]))
+        weight = pack_weight(torch.from_numpy(c["kq"]).permute(3, 2, 0, 1))
+        scale = torch.from_numpy(c["w_scale"]) * 1.0
+        relu = out == "int8 relu"
+        if out == "float":
+            for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+                mod = mod.clone(dtype=jdt)
+                want = np.asarray(mod.apply(params, pair).astype(jnp.float32))
+                got = int8_conv(torch.from_numpy(c["xq"]), weight, scale,
+                                torch.from_numpy(c["bias"]), k, s, p, out_dtype=tdt)
+                np.testing.assert_array_equal(got.float().numpy(), want)
+            continue
+        want, wscale = mod.apply(params, pair, out_scale=jnp.asarray(c["out_vec"]),
+                                 relu_out=relu)
+        got = int8_conv(torch.from_numpy(c["xq"]), weight, scale, torch.from_numpy(c["bias"]),
+                        k, s, p, relu=relu,
+                        inv_out_scale=(1.0 / torch.from_numpy(c["out_vec"])).float())
+        want = np.asarray(want)
+        assert got.dtype == torch.int8 and got.shape == want.shape
+        assert np.abs(want).max() == 127 and (want == 0).any()
+        diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1
+        flips, total = flips + int((diff > 0).sum()), total + diff.size
+    assert flips <= FLIP_SHARE * total
+
+
+def test_int8_stem_vector_requantize_matches_rxtpu():
+    """K8's stem entry from bf16 NCHW views with DenseNet's 64-channel
+    requantize (``stem_absmax_ch``) against rxtpu's stem ``QuantConv``."""
+    c = _vector_case(DENSENET_KINDS[0], 7)
+    c["in_scale"] = np.float32(1.0 / 32.0)
+    rng = np.random.default_rng(8)
+    views = jnp.asarray(rng.normal(0.0, 2.0, (2, 21, 18, 6)), jnp.bfloat16)
+    mod = RxQuantConv(features=64, kernel_size=(7, 7), strides=(2, 2),
+                      padding=[(3, 3), (3, 3)], dtype=jnp.float32)
+    params = {"params": {"kernel_q": jnp.asarray(c["kq"]), "w_scale": jnp.asarray(c["w_scale"]),
+                         "bias": jnp.asarray(c["bias"]), "in_scale": jnp.asarray(c["in_scale"])}}
+    want, _ = mod.apply(params, views, out_scale=jnp.asarray(c["out_vec"]), relu_out=True)
+    x = torch.from_numpy(np.array(views.astype(jnp.float32))).to(torch.bfloat16)
+    in_scale = torch.tensor(c["in_scale"])
+    kq = pack_weight(torch.from_numpy(c["kq"]).permute(3, 2, 0, 1))
+    got = int8_stem_conv(x.permute(0, 3, 1, 2).contiguous(), pack_stem_weight(kq),
+                         torch.from_numpy(c["w_scale"]) * in_scale, torch.from_numpy(c["bias"]),
+                         in_scale, relu=True,
+                         inv_out_scale=(1.0 / torch.from_numpy(c["out_vec"])).float())
+    want = np.asarray(want)
+    assert (want > 0).any() and (want == 0).any()
+    diff = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= FLIP_SHARE
+    with pytest.raises(ValueError, match="inv_out_scale"):
+        int8_conv(torch.zeros(1, 3, 3, 16, dtype=torch.int8), torch.zeros(8, 16, dtype=torch.int8),
+                  torch.ones(8), torch.ones(8), 1, inv_out_scale=torch.ones(4))
+
+
+def test_quant_pre_norm_matches_rxtpu():
+    """DenseNet's int8 pre-activation BN: ``relu(q * (svec * mul) + add)``
+    requantized per channel, and its f32 form (``out_scale=None``), bit-equal
+    to rxtpu's run op by op."""
+    rng = np.random.default_rng(9)
+    c = 96
+    q = rng.integers(-127, 128, (2, 5, 6, c), dtype=np.int8)
+    svec = rng.uniform(0.5, 2.0, c).astype(np.float32) / 127.0
+    mul = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    add = rng.normal(0.0, 0.3, c).astype(np.float32)
+    out_scale = rng.uniform(0.3, 1.5, c).astype(np.float32) / 127.0
+    rx = RxQuantPreNorm(c)
+    params = {"params": {"mul": jnp.asarray(mul), "add": jnp.asarray(add)}}
+    norm = QuantPreNorm(c)
+    norm.mul.copy_(torch.from_numpy(mul))
+    norm.add.copy_(torch.from_numpy(add))
+    pair = (torch.from_numpy(q), torch.from_numpy(svec))
+    for scale in (out_scale, None):
+        want = rx.apply(params, (jnp.asarray(q), jnp.asarray(svec)),
+                        out_scale=None if scale is None else jnp.asarray(scale))
+        got = norm(pair, None if scale is None else torch.from_numpy(scale))
+        if scale is None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        else:
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+            assert (np.asarray(want[0]) == 127).any() and (np.asarray(want[0]) == 0).any()
+
+
+def _d_batch(rng, n=4):
+    return {"images": rng.integers(0, 256, (n, 6, 6, D_SRC, D_SRC), dtype=np.uint8),
+            "mean": rng.uniform(0.3, 0.5, (n, 6)).astype(np.float32),
+            "std": rng.uniform(0.15, 0.25, (n, 6)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def densenet_setup():
+    """rxtpu's shallow DenseNet with the MLP head (random BN statistics), its
+    calibration on two batches and its prepared int8 tree, and the port's
+    model with the same weights; built and run with blocks 2/2/2/2."""
+    with shallow_densenet():
+        cfg = Config(data=DataConfig(path_data="x", crop_size=D_CROP, src_size=D_SRC),
+                     model=ModelConfig(backbone="densenet121", nb_classes=CLASSES,
+                                       pretrained=False, size_features=16,
+                                       compute_dtype="float32", head="mlp"),
+                     train=TrainConfig(), experiment_id="qd")
+        model = build_model(cfg)
+        state, _ = create_train_state(cfg, model, steps_per_epoch=1)
+        v = randomize_flax({"params": state.params, "batch_stats": state.batch_stats}, 1)
+        state = state.replace(params=v["params"], batch_stats=v["batch_stats"])
+        rng = np.random.default_rng(0)
+        calib, test = [_d_batch(rng), _d_batch(rng)], _d_batch(rng)
+        qstats = jax.device_get(rx_calibrate(model, state, [_jax(b) for b in calib], D_CROP))
+        qvars = jax.device_get(rx_prepare_quantized(model, state, qstats))
+        steps = {t: make_quantized_predict_step(
+            model, D_CROP, transforms=rx_tta_transforms("none") if t else None)
+            for t in (True, False)}
+        want = {t: np.asarray(step(qvars, _jax(test))) for t, step in steps.items()}
+        port = TwoSitesNN("densenet121", nb_classes=CLASSES, size_features=16)
+        port.load_state_dict(from_flax(jax.device_get(state.params),
+                                       jax.device_get(state.batch_stats)))
+        qnet = TwoSitesNN("densenet121", nb_classes=CLASSES, size_features=16, quantized=True)
+        qnet.load_state_dict(from_flax_quantized(qvars["params"], qvars["batch_stats"]))
+        qstats_port = calibrate(port.eval(), [_torch(b) for b in calib], D_CROP, torch.float32)
+        own = prepare_quantized(port, qstats_port, torch.float32)
+    return dict(state=jax.device_get(state), qstats=qstats, qvars=qvars, want=want, port=port,
+                qnet=qnet.eval(), qstats_port=qstats_port, own=own, calib=calib, test=test)
+
+
+def test_calibrate_densenet_matches_rxtpu(densenet_setup):
+    """Every conv's scalar and per-channel ranges, and the stem's and each
+    transition's segment ranges, within rtol 1e-5 (per channel, and 1e-5 of
+    the largest channel's for the small ones)."""
+    s = densenet_setup
+    got, want = s["qstats_port"], qstats_from_flax(s["qstats"])
+    assert sorted(got) == sorted(want)
+    assert {"stem_absmax", "stem_absmax_ch", "transition3_absmax_ch"} <= set(got)
+    for name, entry in want.items():
+        pairs = entry.items() if isinstance(entry, dict) else [("", entry)]
+        for key, w in pairs:
+            g = got[name][key] if key else got[name]
+            assert g.shape == w.shape, (name, key)
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-5 * float(w.max()), err_msg=f"{name} {key}")
+    assert got["stem_absmax_ch"].shape == (64,)
+    assert got["block1_layer1.Conv_0"]["in_absmax_ch"].shape == (64,)
+
+
+def test_quantize_densenet_backbone_bit_equal_to_rxtpu(densenet_setup):
+    """The same f32 weights and stats give rxtpu's int8 tree bit for bit:
+    rxtpu's ``quantize_densenet_backbone`` run op by op (its jitted
+    ``prepare_quantized`` may contract the BN affine's multiply-add)."""
+    s = densenet_setup
+    params, stats = s["state"].params["backbone"], s["state"].batch_stats["backbone"]
+    want = from_flax_quantized({"backbone": rx_quantize_densenet_backbone(
+        params, stats, s["qstats"]["backbone"]), "head": {}})
+    got = quantize_densenet_backbone(s["port"].state_dict(), qstats_from_flax(s["qstats"]))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    assert got["backbone.block1_layer1.Conv_0.in_scale_vec"].shape == (64,)
+    assert got["backbone.block1_layer1.Conv_0.out_scale"].shape == (128,)
+    assert got["backbone.conv_init.out_scale"].shape == (64,)
+
+
+@pytest.mark.parametrize("transforms", [True, False], ids=["identity", "none"])
+def test_quant_predictor_densenet_matches_rxtpu(densenet_setup, transforms):
+    """rxtpu's DenseNet ``qvars`` in the port (the head unfolded, with its
+    statistics): bf16 views the stem quantizes, or K1's int8 views. The same
+    argmax on every row and the ResNet tests' probability bound."""
+    s = densenet_setup
+    step = QuantPredictor(s["qnet"], D_CROP, tta_transforms("none") if transforms else None)
+    got = step(_torch(s["test"])).numpy()
+    want = s["want"][transforms]
+    assert got.shape == want.shape == (4, CLASSES) and got.dtype == np.float32
+    assert want.max() - want.min() > 1e-3
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=0)
+
+
+def test_port_int8_densenet_tracks_its_f32_forward(densenet_setup):
+    """The port's own DenseNet calibration and quantization against its f32
+    unfolded predict step: ``tests/test_quant.py``'s limits."""
+    s = densenet_setup
+    qnet = s["own"]
+    assert qnet.head.bn1.weight.dtype == torch.float32 and not qnet.head.folded
+    assert qnet.backbone.block1_layer1.Conv_1.kernel_q.dtype == torch.int8
+    with shallow_densenet():
+        pf = Predictor(s["port"], D_CROP, dtype=torch.float32)(_torch(s["test"])).numpy()
+    pq = QuantPredictor(qnet, D_CROP, tta_transforms("none"))(_torch(s["test"])).numpy()
+    np.testing.assert_allclose(pq.sum(-1), 1.0, rtol=1e-5)
+    assert (pq.argmax(-1) == pf.argmax(-1)).mean() >= 0.75
+    assert np.abs(pq - pf).max() < 0.08
 
 
 @pytest.mark.gpu
@@ -416,3 +665,33 @@ def test_int8_conv_kernel_matches_plain_on_card():
             assert int8_conv.launches == before + 1
             assert got.dtype == want.dtype
             assert torch.equal(got.view(bits[got.dtype]), want.view(bits[want.dtype]))
+
+
+@pytest.mark.gpu
+def test_int8_conv_vector_requantize_matches_plain_on_card():
+    """K8's per-channel requantize (``int8_conv`` and ``int8_stem_conv``) against
+    the plain version on the card, bit for bit, at DenseNet's conv kinds; two
+    launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the int8_conv kernel runs only on the card")
+    for seed, kind in enumerate(DENSENET_KINDS):
+        c = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in _vector_case(kind, seed).items()}
+        _, _, _, _, _, _, k, s, p, out = kind
+        args = (c["xq"], pack_weight(c["kq"].permute(3, 2, 0, 1)), c["w_scale"] * 1.0,
+                c["bias"], k, s, p)
+        kw = (dict(out_dtype=torch.float32) if out == "float" else
+              dict(relu=out == "int8 relu", inv_out_scale=(1.0 / c["out_vec"]).float()))
+        got, again = int8_conv(*args, **kw), int8_conv(*args, **kw)
+        want = int8_conv_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, again)
+    c = {k: torch.from_numpy(np.asarray(v)).cuda()
+         for k, v in _vector_case(DENSENET_KINDS[0], 9).items()}
+    views = torch.randn(2, 6, 64, 64, device="cuda").to(torch.bfloat16)
+    in_scale = torch.tensor(1.0 / 32.0, device="cuda")
+    args = (views, pack_stem_weight(pack_weight(c["kq"].permute(3, 2, 0, 1))),
+            c["w_scale"] * in_scale, c["bias"], in_scale)
+    kw = dict(relu=True, inv_out_scale=(1.0 / c["out_vec"]).float())
+    got, want = int8_stem_conv(*args, **kw), int8_stem_conv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

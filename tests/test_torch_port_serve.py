@@ -212,7 +212,8 @@ mods = [m.name for m in pkgutil.walk_packages(rxtpu_torch.__path__, "rxtpu_torch
 for m in mods:
     importlib.import_module(m)
 assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode", "rxtpu_torch.ops.int8_conv",
-        "rxtpu_torch.models.quant", "rxtpu_torch.infer.quant"} <= set(mods), mods
+        "rxtpu_torch.models.quant", "rxtpu_torch.infer.quant",
+        "rxtpu_torch.models.densenet", "rxtpu_torch.models.heads"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
@@ -380,10 +381,12 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     assert list(sub8.id_code) == list(sub.id_code)
     assert (pg[sub8.sirna, 0] == plates).all()
     assert all(g.sirna.is_unique for _, g in sub8.groupby(plates))
-    for flag in (["--head", "arcface"],
-                 ["--assign-method", "greedy_jax"], ["--backbone", "densenet121"]):
+    for flag in (["--assign-method", "greedy_jax"], ["--profile"], ["--distributed"]):
         with pytest.raises(SystemExit, match="not ported"):
             port_cli.main(argv + flag)
+    with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
+                                         "densenet121, got resnet18/arcface"):
+        port_cli.main(argv + ["--quantize", "int8", "--head", "arcface"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_cli.main(argv[:-2])
