@@ -68,6 +68,22 @@ Phases, each ending the run with a non-zero exit when it fails:
    per validation and test batch, finite losses, a checkpoint; then its test
    phase with ``--tta flips`` and plate leak on phase 4's fixture (run after
    4f): K1 once per test batch, a valid submission;
+3d. resuming phase 3's run (after phase 4, in directories of its own): (a)
+   its last checkpoint written in rxtpu's pickle layout (numpy trees in
+   flax's layout, optax's state classes stood in under optax's module and
+   class names, ``save_rxtpu_pickle``) and resumed with one more epoch: the
+   momentum buffers on the card, right after loading, bit-equal to the
+   pickle's trace after ``from_flax``, the step, one epoch of 4 steps with
+   K2-K4 once per step; (b) the same state at the next epoch's batch 2 in
+   rxtpu's layout and in the port's format, each resumed under
+   ``--profile`` (the port's twice), cuDNN deterministic: 2 steps each, K2-K4
+   twice each in the trace under ``board/{id}/profile``, losses and final
+   weights bit-equal (within twice the spread of the two port-format runs
+   if those differ); (c) ``greedy_jax`` on the card on a seeded [1108, 1108]
+   f32 probability matrix, with no host sync in its loop (sync debug mode
+   "error"), equal to its CPU run and to the host greedy (the smallest
+   top-two gap printed), then the test phase through the CLI with
+   ``--assign-method greedy_jax`` on phase 4's fixture: a valid submission;
 4. the test phase end to end (plate-leak assignment) on the checkpoint
    phase 3 trained, then again with ``--predict-scan-window 2`` (rxtpu's
    scanned predict window; the port predicts one batch per step whatever
@@ -165,7 +181,8 @@ Phases, each ending the run with a non-zero exit when it fails:
    (ArcFace, calibration; ms, views/s, peak memory, device time by kernel),
    the bf16 and int8 predict steps, K8 per DenseNet conv kind beside its
    bound and its library call, and the ``QuantPreNorm`` chain's share of
-   the int8 step.
+   the int8 step; ``greedy_jax`` per [1108, 1108] experiment (ms by the
+   host's clock and by events, and its kernel launches).
 
 ``python3 chip_smoke.py --fused-block`` builds the kernels and runs only
 phase 2's K6/K7 checks and the timing of every body's launches, device
@@ -174,6 +191,8 @@ time and host time, per block shape and per train step.
 checks, phase 4f on a seeded random ResNet-50 and the int8 timings.
 ``python3 chip_smoke.py --densenet`` builds the kernels and runs only K8's
 DenseNet checks of phase 2, 3c, 4g and DenseNet's timings of phase 7.
+``python3 chip_smoke.py --resume`` builds the kernels and runs phase 3 for
+one epoch, phase 4's test phase, phase 3d and greedy_jax's timing.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -193,6 +212,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
@@ -2692,6 +2712,320 @@ def densenet_timings(dev, int8_steps, batch, card):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# --resume from rxtpu's pickle, --profile and --assign-method greedy_jax
+# (phase 3d and greedy_jax's timing in phase 7)
+# ---------------------------------------------------------------------------
+SHEAR_KERNEL_NAMES = ("shear_x_kernel", "shear_y_kernel", "shear_finish_kernel")  # K2-K4
+GREEDY_N, GREEDY_SEED = 1108, 16  # a Kaggle test experiment: four plates of 277 wells
+
+
+def momentum_by_name(payload, names):
+    """A port-format training checkpoint's momentum buffers by parameter name
+    (the optimizer's state is keyed by position in ``named_parameters``)."""
+    return {names[i]: s["momentum_buffer"] for i, s in payload["optimizer"]["state"].items()}
+
+
+def rxtpu_layout_copy(payload, names, path, **meta):
+    """``payload`` (the port's format) written in rxtpu's pickle layout; the
+    loop fields default to the payload's own."""
+    from rxtpu_torch.train.checkpoint import save_rxtpu_pickle
+
+    fields = {k: payload[k] for k in ("epoch", "batch_in_epoch", "best_metric",
+                                      "epochs_without_improvement") if k in payload}
+    fields.update(meta)
+    step = fields.pop("step", payload["step"])
+    save_rxtpu_pickle(path, payload["state_dict"], momentum_by_name(payload, names), step,
+                      **fields)
+
+
+def trace_kernel_counts(logdir):
+    """Launches of K2-K4's kernels in the one ``*.pt.trace.json`` of ``logdir``."""
+    import glob
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"{logdir}: {len(files)} trace files, expected 1")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in kernels) for k in SHEAR_KERNEL_NAMES}, len(kernels), \
+        os.path.getsize(files[0])
+
+
+def greedy_gaps(probs):
+    """The host greedy loop on ``probs`` (f32, numpy), returning the smallest
+    gap over its iterations between the two largest row maxima and between
+    the two largest values of the winning row: how near a tie came."""
+    import numpy as np
+
+    from rxtpu_torch.infer.plate_leak import rescale
+
+    p = rescale(probs.copy())
+    gap_rows = gap_in_row = math.inf
+    for _ in range(p.shape[0] - 1):
+        best = p.argmax(axis=1)
+        vals = p[np.arange(len(p)), best]
+        top2 = np.partition(vals, -2)[-2:]
+        gap_rows = min(gap_rows, float(top2[1] - top2[0]))
+        r = int(vals.argmax())
+        row2 = np.partition(p[r], -2)[-2:]
+        gap_in_row = min(gap_in_row, float(row2[1] - row2[0]))
+        p[:, best[r]] = 0.0
+        p[r, :] = 0.0
+        p = rescale(p)
+    return gap_rows, gap_in_row
+
+
+def greedy_probs(dev):
+    """One seeded [1108, 1108] f32 probability matrix: softmax of N(0, 3^2) logits."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(GREEDY_SEED)
+    logits = torch.randn(GREEDY_N, GREEDY_N, device=dev, generator=gen) * 3.0
+    return torch.softmax(logits, dim=-1)
+
+
+def resume_profile_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop_normalize,
+                         test_run=None):
+    """Phase 3d on phase 3's fixture and its last checkpoint (epoch E, step
+    E * n_steps): (a) written in rxtpu's pickle layout (best and last) and
+    resumed with ``--epochs E+1``: the momentum buffers on the card right
+    after loading bit-equal to the pickle's trace after ``from_flax``, the
+    step, one epoch of ``n_steps`` steps with K2-K4 once per step; (b) the
+    same state at epoch E+1, batch 2 (step E * n_steps + 2) in rxtpu's
+    layout and in the port's format, each resumed under ``--profile`` (the
+    port's twice): 2 steps each, K2-K4 twice each in the trace, losses and
+    final weights bit-equal when the two port runs are, else within twice
+    their spread; (c) greedy_jax on the card (``test_run``: phase 4's
+    fixture, directory and argv, for the CLI's test phase)."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch.models.convert import from_flax
+    from rxtpu_torch.models.twosites import TwoSitesNN
+    from rxtpu_torch.train import loop as port_loop
+    from rxtpu_torch.train.checkpoint import (
+        is_port_format, load_train_state, read_rxtpu_pickle, save_checkpoint,
+    )
+
+    def flag(name, default):
+        return argv[argv.index(name) + 1] if name in argv else default
+
+    net = TwoSitesNN(flag("--backbone", "resnet50"), nb_classes=int(flag("--nb-classes", 1108)))
+    names = [n for n, _ in net.named_parameters()]
+    del net
+    last = load_train_state(os.path.join(train_dir, "models", "last_smoke.ckpt"))
+    best = load_train_state(os.path.join(train_dir, "models", "best_model_smoke.ckpt"))
+    n_epochs = int(last["epoch"])
+    t0 = time.perf_counter()
+
+    # the checkpoints the runs start from, written once
+    src = os.path.join(WORK, "resume", "src")
+    os.makedirs(src)
+    mid = dict(epoch=n_epochs + 1, batch_in_epoch=2, step=n_epochs * n_steps + 2)
+    ckpts = {name: os.path.join(src, f"{name}.ckpt") for name in
+             ("rx_best", "rx_last", "rx_mid", "port_mid")}
+    rxtpu_layout_copy(best, names, ckpts["rx_best"])
+    rxtpu_layout_copy(last, names, ckpts["rx_last"])
+    rxtpu_layout_copy(last, names, ckpts["rx_mid"], **mid)
+    save_checkpoint(ckpts["port_mid"], last["state_dict"],
+                    optimizer=types.SimpleNamespace(state_dict=lambda: last["optimizer"]),
+                    best_metric=last["best_metric"],
+                    epochs_without_improvement=last["epochs_without_improvement"], **mid)
+    ckpts["port_best"] = os.path.join(train_dir, "models", "best_model_smoke.ckpt")
+
+    def run(label, argv_run, models):
+        """``cli.main(argv_run)`` from a fresh directory whose ``models/``
+        holds ``models`` ({"best_model": path, "last": path}); returns the
+        directory, K2-K4's launches and the state the first step saw."""
+        run_dir = os.path.join(WORK, "resume", label)
+        os.makedirs(os.path.join(run_dir, "models"))
+        for name, path in models.items():
+            shutil.copy(path, os.path.join(run_dir, "models", f"{name}_smoke.ckpt"))
+        argv_run = [run_dir if a == train_dir else a for a in argv_run]
+        seen = {}
+        real = port_loop.make_train_step
+
+        def first_step_snapshot(*a, **k):
+            fn = real(*a, **k)
+
+            def step(state, *args):
+                if not seen:  # right after loading: the optimizer's state on the card
+                    opt = state.optimizer
+                    seen.update(step=state.step, momentum={
+                        n: opt.state[p]["momentum_buffer"].detach().clone()
+                        for n, p in zip(names, state.model.parameters())})
+                return fn(state, *args)
+            return step
+
+        port_loop.make_train_step = first_step_snapshot
+        for kernel in shear_kernels:
+            kernel.launches = 0
+        crop_normalize.launches = 0
+        try:
+            rc, wall = dn_run(cli, run_dir, argv_run, log_every_step=True)
+        finally:
+            port_loop.make_train_step = real
+        launches = [k.launches for k in shear_kernels]
+        print(f"{label}: cli rc {rc} in {wall:.2f} s; K2-K4 launches {launches}, K1 "
+              f"{crop_normalize.launches}")
+        if rc != 0:
+            fail(f"{label}: cli exited {rc}")
+        return run_dir, launches, seen
+
+    # (a) an epoch-end resume from rxtpu's layout
+    resume = argv[:argv.index("--epochs")] + argv[argv.index("--epochs") + 2:] + [
+        "--resume", "--epochs", str(n_epochs + 1)]
+    dir_a, launches, seen = run("a_rxtpu_epoch_end", resume,
+                                {"best_model": ckpts["rx_best"], "last": ckpts["rx_last"]})
+    pickled = read_rxtpu_pickle(ckpts["rx_last"])
+    trace = from_flax(pickled["opt_state"][0].trace)
+    mom = seen.get("momentum", {})
+    off = [n for n in names if not (n in mom and mom[n].device.type == dev.type
+                                    and torch.equal(mom[n].cpu(), trace[n]))]
+    step0 = int(np.asarray(pickled["step"]))
+    print(f"(a) rxtpu-layout pickle at epoch {n_epochs}, step {step0} (schedule count "
+          f"{int(np.asarray(pickled['opt_state'][1].count))}): {len(names) - len(off)} of "
+          f"{len(names)} momentum buffers on the card bit-equal to its trace after from_flax "
+          f"right after loading; the first step ran at step {seen.get('step')}")
+    if off or seen.get("step") != step0 or step0 != last["step"]:
+        fail(f"(a) the resumed state differs from the pickle's: buffers {off[:3]}, step "
+             f"{seen.get('step')} against {step0}")
+    if launches != [n_steps] * 3:
+        fail(f"(a) K2-K4 launched {launches} times for one epoch of {n_steps} steps")
+    after = load_train_state(os.path.join(dir_a, "models", "last_smoke.ckpt"))
+    logged = [r["training/loss"] for r in read_jsonl(os.path.join(dir_a, "board", "smoke",
+                                                                  "metrics.jsonl"))
+              if "training/loss" in r]
+    print(f"(a) one epoch: last checkpoint epoch {after['epoch']} step {after['step']}; losses "
+          f"{[round(v, 4) for v in logged]}; best checkpoint still rxtpu's: "
+          f"{not is_port_format(os.path.join(dir_a, 'models', 'best_model_smoke.ckpt'))}")
+    if (after["epoch"], after["step"]) != (n_epochs + 1, step0 + n_steps) or \
+            len(logged) != n_steps or not all(math.isfinite(v) for v in logged):
+        fail("(a) the resumed run did not train exactly one epoch with finite losses")
+
+    # (b) a mid-epoch resume under --profile, from both formats
+    profiled = resume + ["--profile"]
+    saved_det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for label, models in (
+                ("b_rxtpu_mid_epoch", {"best_model": ckpts["rx_best"], "last": ckpts["rx_mid"]}),
+                ("b_port_mid_epoch_1", {"best_model": ckpts["port_best"],
+                                        "last": ckpts["port_mid"]}),
+                ("b_port_mid_epoch_2", {"best_model": ckpts["port_best"],
+                                        "last": ckpts["port_mid"]})):
+            run_dir, launches, seen = run(label, profiled, models)
+            counts, n_kernels, size = trace_kernel_counts(
+                os.path.join(run_dir, "board", "smoke", "profile"))
+            losses = [r["training/loss"] for r in read_jsonl(
+                os.path.join(run_dir, "board", "smoke", "metrics.jsonl")) if "training/loss" in r]
+            final = load_train_state(os.path.join(run_dir, "models", "last_smoke.ckpt"))
+            print(f"{label}: first step at step {seen.get('step')}; trace of {n_kernels} kernel "
+                  f"launches ({size / 1e6:.1f} MB): {counts}; losses {losses}")
+            if launches != [2, 2, 2] or list(counts.values()) != [2, 2, 2]:
+                fail(f"{label}: K2-K4 launched {launches} times, traced {counts}; expected 2 "
+                     "each (batches 2 and 3 of the epoch)")
+            if seen.get("step") != mid["step"] or final["step"] != mid["step"] + 2 or \
+                    len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+                fail(f"{label}: the mid-epoch resume did not train 2 steps from step "
+                     f"{mid['step']}")
+            runs[label] = (losses, final["state_dict"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+
+    def gaps(a, b):
+        (la, sa), (lb, sb) = runs[a], runs[b]
+        num = sum(float((sa[k].double() - sb[k].double()).norm()) ** 2 for k in sa)
+        den = sum(float(sb[k].double().norm()) ** 2 for k in sb)
+        same = all(torch.equal(sa[k], sb[k]) for k in sa) and la == lb
+        return max(abs(x - y) for x, y in zip(la, lb)), (num / den) ** 0.5, same
+
+    (l_rx, w_rx, same_rx) = gaps("b_rxtpu_mid_epoch", "b_port_mid_epoch_1")
+    (l_pp, w_pp, same_pp) = gaps("b_port_mid_epoch_2", "b_port_mid_epoch_1")
+    print(f"(b) rxtpu-layout against port-format resume: losses max|diff| {l_rx:.3g}, final "
+          f"weights relative L2 {w_rx:.3g}, bit-equal {same_rx}; the two port-format "
+          f"resumes: {l_pp:.3g}, {w_pp:.3g}, bit-equal {same_pp} (cuDNN deterministic)")
+    if same_pp and not same_rx:
+        fail("(b) the step is deterministic, and the rxtpu-layout resume is not bit-equal to "
+             "the port-format one")
+    if not same_pp and (l_rx > 2 * l_pp or w_rx > 2 * w_pp):
+        fail("(b) the rxtpu-layout resume lies outside twice the spread of two port-format "
+             "resumes")
+    print(f"phase 3d (a)-(b) in {time.perf_counter() - t0:.2f} s")
+    if test_run is not None:
+        greedy_jax_phase(dev, cli, *test_run)
+
+
+def greedy_jax_phase(dev, cli, fx_test, test_dir, argv):
+    """Phase 3d (c): greedy_jax on the card on one seeded [1108, 1108] f32
+    probability matrix, with no host sync inside its loop (CUDA sync debug
+    mode "error"), against the host greedy and its own CPU run; then the test
+    phase through the CLI with ``--assign-method greedy_jax``."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch.infer.plate_leak import greedy_assign, greedy_assign_jax, greedy_assign_loop
+
+    probs = greedy_probs(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        on_card = greedy_assign_loop(probs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = on_card.cpu().numpy()
+    host = probs.cpu().numpy()
+    cpu = greedy_assign_jax(host, "cpu")
+    exact = greedy_assign(host)
+    gap_rows, gap_in_row = greedy_gaps(host)
+    print(f"(c) greedy_jax on the card [{GREEDY_N},{GREEDY_N}] f32 (no host sync in its loop): "
+          f"{len(set(got.tolist()))} distinct classes; equal to its CPU run {np.array_equal(got, cpu)}, "
+          f"to the host greedy {np.array_equal(got, exact)}; smallest top-two gap of the row "
+          f"maxima {gap_rows:.3g}, within the winning row {gap_in_row:.3g}")
+    if got.dtype != np.float32 or not np.array_equal(got, cpu) or not np.array_equal(got, exact):
+        fail("(c) greedy_jax on the card differs from its CPU run or the host greedy")
+    out_dir = os.path.join(test_dir, "greedy_jax")
+    os.makedirs(out_dir)
+    argv_g = [out_dir if a == test_dir else a for a in argv] + ["--assign-method", "greedy_jax"]
+    rc, wall = dn_run(cli, test_dir, argv_g)
+    print(f"(c) test phase with --assign-method greedy_jax: rc {rc} in {wall:.2f} s")
+    if rc != 0:
+        fail(f"the greedy_jax test phase exited {rc}")
+    sirnas = check_submission(os.path.join(out_dir, "submission_smoke.csv"), fx_test)
+    with open(os.path.join(test_dir, "submission_smoke.csv"), newline="") as f:
+        greedy_sirnas = [int(r["sirna"]) for r in csv.DictReader(f)]
+    print(f"(c) greedy_jax's submission against phase 4's greedy one: "
+          f"{sum(a != b for a, b in zip(sirnas, greedy_sirnas))} of {len(sirnas)} rows differ")
+
+
+def greedy_jax_timings(dev, card):
+    """Phase 7: greedy_jax per experiment ([1108, 1108]) on the card: the whole
+    call from host probabilities to host results by the host's clock, the
+    loop by CUDA events, and its kernel launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rxtpu_torch.infer.plate_leak import greedy_assign_jax, greedy_assign_loop
+
+    probs = greedy_probs(dev)
+    host = probs.cpu().numpy()
+    greedy_assign_jax(host, dev)  # warm-up
+    ms = host_ms(lambda: greedy_assign_jax(host, dev), 3)
+    loop_ms = cuda_ms(lambda: greedy_assign_loop(probs), 3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        greedy_assign_loop(probs)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    print(f"greedy_jax per experiment [{GREEDY_N},{GREEDY_N}] f32 on {card}: {ms:.3f} ms host "
+          f"clock (host probabilities to host results), loop {loop_ms:.3f} ms CUDA events, "
+          f"{launches} kernel launches ({launches / GREEDY_N:.1f} per iteration)")
+    return ms, loop_ms, launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2756,6 +3090,39 @@ def main() -> int:
         batch = int8_batch(dev, 11)
         phase("7 timings of the int8 path")
         int8_timings(dev, *int8_forward_phase(dev, net, batch)[:3], batch, card)
+        print(card)
+        return 0
+    if "--resume" in sys.argv[1:]:  # only a 1-epoch phase 3, 3d and greedy_jax's timing
+        from rxtpu_torch import cli
+        from rxtpu_torch.data.synthetic import make_test_fixture, make_train_fixture
+
+        shutil.rmtree(WORK, ignore_errors=True)
+        train_dir, test_dir = os.path.join(WORK, "train"), os.path.join(WORK, "test")
+        fx = make_train_fixture(train_dir, nb_classes=1108, n_experiments=3,
+                                wells_per_experiment=32, n_test_wells=16, img_size=SRC, seed=0)
+        argv = ["--experiment_id", "smoke", "--pack", fx["pack_dir"], "--data-dir",
+                fx["data_dir"], "--stats", fx["stats"], "--out-dir", train_dir,
+                "--split-by-experiment", "--epochs", "1", "--no-plate-leak", "--device", "cuda"]
+        phase("3 training end to end, 1 epoch (rxtpu_torch.cli)")
+        rc, wall = dn_run(cli, train_dir, argv)
+        print(f"cli rc {rc} in {wall:.2f} s")
+        fx_test = make_test_fixture(test_dir, nb_classes=1108, n_test_wells=32, img_size=SRC,
+                                    seed=0)
+        os.makedirs(os.path.join(test_dir, "models"))
+        shutil.copy(os.path.join(train_dir, "models", "best_model_smoke.ckpt"),
+                    os.path.join(test_dir, "models", "best_model_smoke.ckpt"))
+        argv_test = ["--experiment_id", "smoke", "--pack", fx_test["pack_dir"], "--data-dir",
+                     fx_test["data_dir"], "--stats", fx_test["stats"], "--out-dir", test_dir,
+                     "--device", "cuda"]
+        rc_test, _ = dn_run(cli, test_dir, argv_test)
+        if rc or rc_test:
+            fail(f"phase 3's run exited {rc}, the test phase {rc_test}")
+        phase("3d --resume from an rxtpu-layout pickle, --profile, greedy_jax")
+        resume_profile_phase(dev, cli, train_dir, argv, 64 // B, shear_kernels,
+                             crop_normalize, test_run=(fx_test, test_dir, argv_test))
+        phase("7 timing of greedy_jax")
+        greedy_jax_timings(dev, card)
+        shutil.rmtree(WORK, ignore_errors=True)
         print(card)
         return 0
     if "--densenet" in sys.argv[1:]:  # only DenseNet's K8 checks, 3c, 4g and their timings
@@ -2876,6 +3243,7 @@ def main() -> int:
     argv = ["--experiment_id", "smoke", "--pack", fx["pack_dir"], "--data-dir",
             fx["data_dir"], "--stats", fx["stats"], "--out-dir", train_dir,
             "--split-by-experiment", "--epochs", "2", "--no-plate-leak", "--device", "cuda"]
+    train_argv = argv  # phase 3d resumes from this run
     resolve = cli.resolve_config
 
     def log_every_step(args):  # so every train step's loss is logged and checked
@@ -3044,6 +3412,12 @@ def main() -> int:
         if f.read() != sub_bytes:
             fail("--predict-scan-window 2 wrote another submission")
     print("scan-window submission: byte-equal to window 1")
+
+    # ---- 3d. --resume from rxtpu's layout, --profile, greedy_jax ----------------
+    phase("3d --resume from an rxtpu-layout pickle (epoch end; mid-epoch under --profile "
+          "against the port's format), greedy_jax on the card and through the CLI")
+    resume_profile_phase(dev, cli, train_dir, train_argv, 64 // B, shear_kernels,
+                         crop_normalize, test_run=(fx, test_dir, argv))
 
     # ---- 4b. the K5 path at full width ----------------------------------------
     phase("4b K5 path at full width: EvalStep / Predictor(fused_stem=True) on the trained "
@@ -3659,6 +4033,7 @@ def main() -> int:
     dn_k8_times = densenet_timings(dev, dn_steps, test_batch, card)
     jpeg_timings(dev, cli, jpeg_run, card)
     png_timings(dev, cli, png_run, card, codecs)
+    greedy_jax_timings(dev, card)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
 

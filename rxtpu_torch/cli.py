@@ -5,7 +5,12 @@ line works for both:
 
 1. config resolution with rxtpu's rules (``--debug`` caps the examples,
    pretraining is off without ``--pretrained-path``; the source size comes
-   from the pack's JSON, or from the header of the first record's image);
+   from the pack's JSON, or from the header of the first record's image).
+   ``--debug`` with ``--device cpu`` is rxtpu's local mode (``--debug`` on a
+   CPU backend): resnet18 and crop 48 unless given, 5 epochs of batch 2, an
+   unstratified split, no decoder threads, plate groups from
+   ``{data}/full_metadata/train.csv`` when it exists, and a test phase on
+   ``DummyClassifier``'s random logits;
 2. the stats artifact: loaded, or computed from the image tree when it is
    missing (``rxtpu_torch.tools.run_stats``, written where rxtpu writes it);
 3. training, unless ``models/best_model_{experiment_id}.ckpt`` exists (or
@@ -16,7 +21,10 @@ line works for both:
    tree under ``--data-dir`` (``--image-ext jpeg`` or ``png``; bytes
    preloaded, decoded per batch by 4 threads: JPEGs on the run's device,
    PNGs on the host), and the epoch loop with validation, best and rolling
-   checkpoints (``rxtpu_torch.train.loop``);
+   checkpoints (``rxtpu_torch.train.loop``; ``--resume`` continues from the
+   port's rolling checkpoint or from rxtpu's pickle, optax state included),
+   under a ``torch.profiler`` trace into ``board/{id}/profile`` with
+   ``--profile``;
 4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
    format): plate groups from ``train.csv``, predict each test experiment
    through ``{pack}/test.rxpack`` or its own image store with the BN-folded
@@ -24,9 +32,11 @@ line works for both:
    statistics), or, with ``--quantize int8``, the W8A8 int8 model (ResNet or
    DenseNet-121 with the MLP head), calibrated once on the first
    experiment's opening ``--calib-batches`` batches; mask by plate, assign
-   one class per row and write ``submission_{id}.csv``.
+   one class per row (``--assign-method greedy_jax`` on the run's device)
+   and write ``submission_{id}.csv``.
 
-Flags whose path is not ported yet exit with a message that names them.
+``--distributed``, ``--model-parallel`` and ``--checkpoint-backend orbax``
+are not ported yet: they exit with a message that names them.
 
     python -m rxtpu_torch.cli [--data-dir data] [--pack DIR] --experiment_id ID [--device cuda]
 """
@@ -110,34 +120,31 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> Optional[str]:
     """The first flag of argv whose path is not ported yet, if any."""
-    if args.debug and torch.device(args.device).type == "cpu":
-        return "--debug on the CPU (local mode, DummyClassifier)"
-    if args.assign_method == "greedy_jax":
-        return "--assign-method greedy_jax"
     if args.distributed or args.model_parallel != 1:
         return "--distributed / --model-parallel (multi-device)"
     if args.checkpoint_backend != "pickle":
         return f"--checkpoint-backend {args.checkpoint_backend}"
-    if args.profile:
-        return "--profile"
     return None
 
 
 def resolve_config(args) -> Config:
-    """rxtpu's config resolution (``rxtpu/cli.py:116-188``); ``--debug`` runs
-    only on a card here, so it is never the local mode."""
+    """rxtpu's config resolution (``rxtpu/cli.py:116-188``); rxtpu's local
+    mode, ``--debug`` on a CPU backend, is ``--debug`` with ``--device cpu``."""
     cfg = Config(
         data=DataConfig(path_data=args.data_dir, image_ext=args.image_ext),
         model=ModelConfig(head=args.head, pretrained_path=args.pretrained_path),
         train=TrainConfig(),
         experiment_id=args.experiment_id,
     )
+    local = args.debug and torch.device(args.device).type == "cpu"
     if args.debug:
-        cfg = debug_overrides(cfg, local=False)
+        cfg = debug_overrides(cfg, local)
     if args.pretrained_path:
         cfg.model.pretrained = True
     if args.backbone:
         cfg.model.backbone = args.backbone
+    elif local and not args.pretrained_path:
+        cfg.model.backbone = "resnet18"
     if args.epochs is not None:
         cfg.train.nb_epochs = args.epochs
     if args.val_fraction is not None:
@@ -161,6 +168,8 @@ def resolve_config(args) -> Config:
         cfg.train.nb_examples = cfg.train.bs_per_device if args.debug else None
     if args.crop_size is not None:
         cfg.data.crop_size = args.crop_size
+    elif local:
+        cfg.data.crop_size = 48
     if args.lr is not None:
         cfg.train.lr = args.lr
     if args.nb_classes is not None:
@@ -227,19 +236,29 @@ def _store(cfg: Config, index, pack: Optional[str]):
                      preload=cfg.data.cache_bytes_in_ram)
 
 
+def decoder_threads(cfg: Config) -> int:
+    """Decode and inflate threads: none in local mode (``rxtpu/cli.py:294``)."""
+    return 0 if cfg.local else DECODER_THREADS
+
+
 def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) -> None:
-    """Split, pipelines, train state and the epoch loop (``rxtpu/cli.py:314-399``)."""
+    """Split, pipelines, train state and the epoch loop (``rxtpu/cli.py:314-399``),
+    under a profiler trace with ``--profile``."""
     from rxtpu_torch.data.pipeline import Pipeline
     from rxtpu_torch.data.records import (
         load_metadata, read_metadata_csvs, split_by_experiment, stratified_split,
     )
     from rxtpu_torch.train.loop import run_training
     from rxtpu_torch.train.setup import build_model, create_train_state
+    from rxtpu_torch.utils.profiling import trace
 
     print("########## TRAINING ##########")
     rows, controls = read_metadata_csvs(cfg.data.path_metadata, "train")
     if cfg.train.train_split_by_experiment:
         train_rows, val_rows = split_by_experiment(rows, random_state=cfg.train.split_seed)
+    elif cfg.local:
+        train_rows, val_rows = stratified_split(rows, cfg.train.val_fraction,
+                                                cfg.train.split_seed, stratify_by_sirna=False)
     else:
         print("Stratify train/val split by sirna...")
         train_rows, val_rows = stratified_split(rows, cfg.train.val_fraction,
@@ -259,7 +278,8 @@ def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) 
                          f"{cfg.data.src_size}; pass --crop-size <= {cfg.data.src_size}")
     store = _store(cfg, idx_train, args.pack)
     store_val = store if args.pack else _store(cfg, idx_val, None)
-    source = dict(src_size=cfg.data.src_size, decoder_threads=DECODER_THREADS, device=device)
+    source = dict(src_size=cfg.data.src_size, decoder_threads=decoder_threads(cfg),
+                  device=device)
     pipe_train = Pipeline(idx_train, store, stats, global_bs, "train", seed=cfg.train.seed,
                           prefetch_depth=cfg.data.prefetch_depth, two_site=args.two_site_train,
                           **source)
@@ -268,7 +288,9 @@ def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) 
     model = build_model(cfg)
     state, lr = create_train_state(cfg, model, max(1, len(pipe_train)), device)
     print(f"lr: {lr}")
-    result = run_training(cfg, state, pipe_train, pipe_val, device, resume=args.resume)
+    with trace(os.path.join(cfg.train.board_dir, cfg.experiment_id, "profile"),
+               enabled=args.profile):
+        result = run_training(cfg, state, pipe_train, pipe_val, device, resume=args.resume)
     print(f"Best validation accuracy: {result.best_accuracy:.4f}")
 
 
@@ -303,7 +325,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from rxtpu_torch.infer.plate_leak import constrained_predict, rescale
     from rxtpu_torch.infer.predict import Predictor, predict_dataset
     from rxtpu_torch.infer.submit import write_submission
-    from rxtpu_torch.train.checkpoint import checkpoint_exists, is_port_format, load_checkpoint
+    from rxtpu_torch.models.twosites import DummyClassifier
+    from rxtpu_torch.train.checkpoint import checkpoint_exists, load_checkpoint
     from rxtpu_torch.train.loop import last_checkpoint_path
     from rxtpu_torch.train.setup import build_model
 
@@ -319,9 +342,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     # rolling one (resuming a finished run is a cheap no-op)
     last_path = last_checkpoint_path(cfg)
     resume_pending = args.resume and checkpoint_exists(last_path)
-    if resume_pending and not is_port_format(last_path):
-        raise SystemExit(f"--resume from an rxtpu pickle ({last_path}, optax "
-                         "state) is not ported to rxtpu_torch yet")
     if not checkpoint_exists(ckpt_path) or resume_pending:
         train_phase(cfg, args, stats, device, global_bs)
 
@@ -334,20 +354,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     if use_int8:  # before the checkpoint loads: the model's arch decides
         from rxtpu_torch.infer.quant import quantizable
 
+        if cfg.local:
+            raise SystemExit("--quantize int8 needs a trained model (unavailable with "
+                             "--debug local's DummyClassifier)")
         if not quantizable(model):
             raise SystemExit("--quantize int8 supports resnet backbones with the mlp head "
                              f"and densenet121, got {cfg.model.backbone}/{cfg.model.head}")
         if args.calib_batches < 1:
             raise SystemExit("--calib-batches must be >= 1")
-    model.load_state_dict(load_checkpoint(ckpt_path))
-    model = model.to(device).eval()
+    if not cfg.local:  # local mode predicts with DummyClassifier, no checkpoint
+        model.load_state_dict(load_checkpoint(ckpt_path))
+        model = model.to(device).eval()
 
     plate_groups = None
     if not args.no_plate_leak:
+        full_meta = os.path.join(cfg.data.path_data, "full_metadata", "train.csv")
+        src = full_meta if cfg.local and os.path.exists(full_meta) \
+            else os.path.join(cfg.data.path_metadata, "train.csv")
         try:
-            plate_groups = build_plate_groups(
-                read_csv(os.path.join(cfg.data.path_metadata, "train.csv")),
-                nb_classes=cfg.model.nb_classes)
+            plate_groups = build_plate_groups(read_csv(src), nb_classes=cfg.model.nb_classes)
         except ValueError as e:
             print(f"plate-group construction failed ({e}); "
                   "falling back to unconstrained argmax")
@@ -378,7 +403,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     # experiment wide
     pack_store = _store(cfg, idx_test_all, args.pack) if args.pack else None
     dtype = getattr(torch, cfg.model.compute_dtype)
-    if use_int8:
+    if cfg.local:  # fed the raw views (rxtpu/cli.py:564-566)
+        step = DummyClassifier(nb_classes=cfg.model.nb_classes)
+    elif use_int8:
         step = None  # built on the first experiment's calibration batches
     else:
         step = Predictor(model, args.test_crop, args.tta, args.tta_average, dtype=dtype)
@@ -387,7 +414,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     for i, experiment in enumerate(experiments):
         idx_exp = idx_test_all.for_experiment(experiment)
         pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
-                        src_size=src_size, decoder_threads=DECODER_THREADS, device=device)
+                        src_size=src_size, decoder_threads=decoder_threads(cfg), device=device)
         if step is None:
             step = quantized_step(model, pipe, args, dtype, device)
         probs, ids = predict_dataset(step, pipe, device)
@@ -397,7 +424,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         plates = np.asarray([r["plate"] for r in exp_rows])
         if plate_groups is not None:
             preds = constrained_predict(probs, plates, plate_groups, experiment_types[i],
-                                        method=args.assign_method)
+                                        method=args.assign_method, device=device)
         else:
             preds = rescale(probs).argmax(axis=1).astype(np.float64)
         pred_by_id.update(zip(ids, preds))

@@ -106,8 +106,9 @@ class Config:
 
 
 def debug_overrides(cfg: Config, local: bool) -> Config:
-    """``--debug``: cap the examples to one batch; local (debug without a
-    card) would also shrink the model, which the port does not run."""
+    """``--debug``: cap the examples to one batch; local (``--debug`` with
+    ``--device cpu``) also turns pretraining off and runs 5 epochs of
+    batch 2 (``rxtpu/config.py:118-127``)."""
     cfg.local = local
     cfg.debug = True
     if local:

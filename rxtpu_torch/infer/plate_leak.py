@@ -3,12 +3,17 @@
 
 Each sirna appears on one of 4 plate groups per experiment: mask the classes
 that cannot sit on a sample's plate, then assign one class per row greedily
-(the exact host loop of rxtpu), optimally (Hungarian), or by plain argmax.
+(the exact host loop of rxtpu), greedily on the run's device in f32
+(``greedy_jax``: ``greedy_assign_jax``, rxtpu's ``fori_loop`` of the same
+name in torch ops), optimally (Hungarian), or by plain argmax.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
+import torch
 
 
 def rescale(preds: np.ndarray) -> np.ndarray:
@@ -45,6 +50,38 @@ def greedy_assign(preds: np.ndarray) -> np.ndarray:
     return results
 
 
+def greedy_assign_loop(p: torch.Tensor) -> torch.Tensor:
+    """``greedy_assign_jax``'s loop on ``p``'s device: f32 results [N], no host
+    sync inside (indices stay 0-dim tensors and index through ``gather`` and
+    ``index_fill_``). Each of the N iterations renormalizes the rows first
+    (zero-sum guard), takes each row's argmax, then the argmax over the row
+    maxima (first index on ties, as ``torch.argmax``), and zeroes that
+    column and that row."""
+    p = p.to(torch.float32).clone()
+    n = p.shape[0]
+    results = torch.zeros(n, dtype=torch.float32, device=p.device)
+    for _ in range(n):
+        s = p.sum(dim=1)
+        p = p / torch.where(s == 0, 1.0, s)[:, None]
+        row_best = p.argmax(dim=1)
+        row_vals = p.gather(1, row_best[:, None])[:, 0]
+        r = row_vals.argmax().view(1)
+        col = row_best.gather(0, r)
+        results.scatter_(0, r, col.to(torch.float32))
+        p.index_fill_(1, col, 0.0)
+        p.index_fill_(0, r, 0.0)
+    return results
+
+
+def greedy_assign_jax(preds: np.ndarray, device: Union[str, torch.device] = "cpu"
+                      ) -> np.ndarray:
+    """rxtpu's ``greedy_assign_jax`` (``--assign-method greedy_jax``): the
+    probabilities go to f32 on ``device`` and through ``greedy_assign_loop``;
+    the assignment comes back as f32, as rxtpu's does."""
+    p = torch.as_tensor(np.asarray(preds)).to(device=device, dtype=torch.float32)
+    return greedy_assign_loop(p).cpu().numpy()
+
+
 def hungarian_assign(preds: np.ndarray) -> np.ndarray:
     """Optimal one-to-one assignment maximizing the total log-probability."""
     from scipy.optimize import linear_sum_assignment
@@ -58,15 +95,16 @@ def hungarian_assign(preds: np.ndarray) -> np.ndarray:
 
 def constrained_predict(probs: np.ndarray, plates: np.ndarray,
                         plate_groups: np.ndarray, experiment_type: int,
-                        method: str = "greedy") -> np.ndarray:
-    """Mask, then assign, for one experiment."""
+                        method: str = "greedy",
+                        device: Union[str, torch.device] = "cpu") -> np.ndarray:
+    """Mask, then assign, for one experiment; ``greedy_jax`` runs on ``device``."""
     masked = apply_plate_mask(probs, plates, plate_groups, experiment_type)
     if method == "greedy":
         return greedy_assign(masked)
+    if method == "greedy_jax":
+        return greedy_assign_jax(masked, device)
     if method == "hungarian":
         return hungarian_assign(masked)
     if method == "argmax":
         return masked.argmax(axis=1).astype(np.float64)
-    if method == "greedy_jax":
-        raise NotImplementedError("assignment method 'greedy_jax' is not ported yet")
     raise ValueError(f"unknown assignment method {method!r}")

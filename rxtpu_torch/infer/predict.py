@@ -8,7 +8,9 @@ autocast: ``rxtpu_torch.infer.fold.unfolded_twin``) -> f32 softmax,
 optionally averaged over dihedral TTA variants (probabilities or logits). With ``fused_stem=True`` the kernel K5 runs crop, normalize and
 the whole stem on the raw batch and the twin goes on from the stem's maps
 (no TTA: its transforms act on the views). ``predict_dataset`` drains a
-test ``Pipeline`` and drops the padding rows by their empty ``id_codes``.
+test ``Pipeline`` and drops the padding rows by their empty ``id_codes``;
+given a ``DummyClassifier`` (``--debug`` local mode) it feeds it the raw
+views and takes the softmax of its logits, as rxtpu's ``model_fn`` path.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
 from rxtpu_torch.infer.fold import fold
-from rxtpu_torch.models.twosites import TwoSitesNN
+from rxtpu_torch.models.twosites import DummyClassifier, TwoSitesNN
 
 View = Callable[[torch.Tensor], torch.Tensor]
 
@@ -96,7 +98,13 @@ def average_variants(net: Callable, views: torch.Tensor, transforms: List[View],
 
 def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device
                     ) -> Tuple[np.ndarray, List[str]]:
-    """(probs [N, classes], id_codes [N]) for a test pipeline, padding removed."""
+    """(probs [N, classes], id_codes [N]) for a test pipeline, padding removed.
+    ``step`` maps a batch to probabilities, or is a ``DummyClassifier``."""
+    if isinstance(step, DummyClassifier):
+        dummy = step
+
+        def step(batch):
+            return torch.softmax(dummy(batch["images"]), dim=-1)
     # the keep mask comes from id_codes, so `valid` never goes to the device
     host_batches = ({k: v for k, v in b.items() if k != "valid"} for b in pipe.epoch(0))
     all_probs, all_ids = [], []

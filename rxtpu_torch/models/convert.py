@@ -10,6 +10,9 @@ returns a flat state_dict whose names are the port's module names
   -> ``running_mean``/``running_var``;
 - the ArcFace head's ``weight`` ([size_features, nb_classes]) as it is.
 
+``to_flax(state_dict)`` is its inverse: the port's weights (or an
+optimizer's momentum by parameter name) as rxtpu's numpy trees.
+
 A BN-folded tree (convs with a bias) and DenseNet's tree convert the same
 way. ``from_flax_quantized`` converts rxtpu's prepared int8 tree (``qvars``,
 ``rxtpu/infer/quant.py:prepare_quantized``) to the state dict of a
@@ -25,7 +28,7 @@ and their ``_ch``) by their own names.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +66,34 @@ def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
     if batch_stats:
         _walk(batch_stats, "", True, out)
     return out
+
+
+_FLAX_NAMES = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+               "running_var": "var"}
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """The port's state_dict -> rxtpu ``(params, batch_stats)`` as nested
+    numpy trees, ``from_flax``'s inverse. A map of parameter names alone (an
+    optimizer's momentum) gives the tree of ``params`` and an empty
+    ``batch_stats``."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if key == "head.weight":  # the ArcFace head's class weights, as they are
+            tree = params
+        elif leaf == "weight" and a.ndim > 1:  # conv OIHW -> HWIO, Linear (out, in) -> (in, out)
+            tree, leaf = params, "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            tree = stats if leaf.startswith("running_") else params
+            leaf = _FLAX_NAMES[leaf]
+        for p in path:
+            tree = tree.setdefault(p, {})
+        tree[leaf] = np.array(a, order="C")
+    return params, stats
 
 
 def from_flax_quantized(qparams: Mapping, batch_stats: Optional[Mapping] = None

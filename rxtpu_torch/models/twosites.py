@@ -15,6 +15,9 @@ for a ResNet; DenseNet's head stays unfolded, in f32 parameters, and runs in
 ``quant_dtype`` under autocast (rxtpu's ``MLPHead(dtype, param_dtype=f32)``),
 as ``rxtpu_torch.infer.quant.prepare_quantized`` builds it.
 
+``DummyClassifier`` is the random-logit stand-in of ``--debug`` on the CPU
+(local mode), rxtpu's ``DummyClassifier`` drawn from a ``torch.Generator``.
+
 ``head="arcface"`` is the cosine-margin head (BASELINE config 4, with
 ``control_calibration`` its control-well embedding calibration):
 ``forward(x, labels)`` passes the labels to it, and in train mode the target
@@ -93,3 +96,19 @@ class TwoSitesNN(nn.Module):
         for mod in self.modules():
             if isinstance(mod, Dropout):
                 mod.generator = generator
+
+
+class DummyClassifier:
+    """Random logits for ``--debug`` local runs (``rxtpu/models/twosites.py:99-118``):
+    ``[batch, nb_classes]`` integers uniform in [-10000, 10000), over 10000,
+    in f32, from a generator seeded with ``seed``; one draw per call, on the
+    input's device."""
+
+    def __init__(self, nb_classes: int, seed: int = 0):
+        self.nb_classes = nb_classes
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        ints = torch.randint(-10000, 10000, (x.shape[0], self.nb_classes),
+                             generator=self.generator)
+        return (ints.to(torch.float32) / 10000.0).to(x.device)

@@ -10,7 +10,9 @@
 - a rolling full-state checkpoint ``models/last_{id}.ckpt`` every
   ``checkpoint_every_steps`` steps inside an epoch and after every epoch;
   ``resume`` continues from it, mid-epoch included, replaying the epoch's
-  deterministic batch stream from ``batch_in_epoch``;
+  deterministic batch stream from ``batch_in_epoch``. An rxtpu pickle
+  resumes too: its nesterov trace becomes the SGD momentum, and its best
+  checkpoint stays as it is until a better one is written;
 - early stopping on val accuracy with patience, where a tie is not an
   improvement.
 """
@@ -29,7 +31,7 @@ from rxtpu_torch.train.checkpoint import (
     BestCheckpointer, checkpoint_exists, load_train_state, save_checkpoint,
 )
 from rxtpu_torch.train.metrics import MetricLogger, StepTimer
-from rxtpu_torch.train.optim import backbone_trainable_at_epoch
+from rxtpu_torch.train.optim import backbone_trainable_at_epoch, sgd_state_from_trace
 from rxtpu_torch.train.step import EvalStep, TrainState, make_train_step
 
 
@@ -87,7 +89,12 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
     if resume and checkpoint_exists(last_path):
         saved = load_train_state(last_path)
         state.model.load_state_dict(saved["state_dict"])
-        state.optimizer.load_state_dict(saved["optimizer"])
+        if "optimizer" in saved:
+            state.optimizer.load_state_dict(saved["optimizer"])
+        else:  # an rxtpu pickle: optax's trace is the momentum buffer
+            names = [n for n, _ in state.model.named_parameters()]
+            state.optimizer.load_state_dict(
+                sgd_state_from_trace(state.optimizer, names, saved["trace"]))
         state.step = int(saved["step"])
         ckpt.best = saved.get("best_metric")
         epochs_without_improvement = int(saved.get("epochs_without_improvement", 0))

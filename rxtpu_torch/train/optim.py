@@ -3,7 +3,9 @@
 - SGD(momentum 0.9, nesterov) is ``torch.optim.SGD(nesterov=True,
   weight_decay=0)``: fed ``g + wd*p`` it computes optax's nesterov trace
   (``trace = g + m*trace``, ``update = -lr * (g + m*trace)``), which
-  ``tests/test_torch_port_train.py`` holds against optax.
+  ``tests/test_torch_port_train.py`` holds against optax. So torch's
+  ``momentum_buffer`` is optax's trace, and ``sgd_state_from_trace`` loads
+  an rxtpu trace (by parameter name) as the optimizer's state.
 - The coupled weight decay is added to the gradient here, under the freeze
   mask: where a parameter is frozen its optimizer input is exactly zero, so
   its momentum buffer stays zero and its update is zero (torch skips params
@@ -15,7 +17,7 @@
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -50,6 +52,24 @@ def make_optimizer(params, momentum: float = 0.9, nesterov: bool = True) -> torc
     the schedule, and weight decay is added by ``masked_grads_with_wd``."""
     return torch.optim.SGD(params, lr=0.0, momentum=momentum, nesterov=nesterov,
                            weight_decay=0.0, dampening=0.0)
+
+
+def sgd_state_from_trace(optimizer: torch.optim.SGD, names: Sequence[str],
+                         trace: Mapping[str, torch.Tensor]) -> Dict:
+    """A ``state_dict`` for ``optimizer`` (``make_optimizer`` over the
+    parameters that ``names`` name, in order) whose ``momentum_buffer`` of
+    each parameter is its optax trace. Every buffer is set, zeros included:
+    a frozen parameter's zero trace must stay zero, where an unset buffer
+    would be seeded with the first gradient."""
+    if set(trace) != set(names):
+        raise ValueError(f"the trace names {sorted(set(trace) ^ set(names))} do not match "
+                         "the model's parameters")
+    current = optimizer.state_dict()
+    order = [i for group in current["param_groups"] for i in group["params"]]
+    if len(order) != len(names):
+        raise ValueError(f"{len(names)} names for the optimizer's {len(order)} parameters")
+    return {"state": {i: {"momentum_buffer": trace[n]} for i, n in zip(order, names)},
+            "param_groups": current["param_groups"]}
 
 
 @torch.no_grad()

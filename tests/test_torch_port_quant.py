@@ -365,7 +365,7 @@ def test_quant_guards(tmp_path, monkeypatch):
         calibrate(model, [])
     with pytest.raises(ValueError, match="average"):
         QuantPredictor(model, average="mean")
-    # the CLI: --calib-batches below 1, the flags not ported yet, and the
+    # the CLI: --calib-batches below 1, --distributed (not ported yet), and the
     # ArcFace head, which int8 does not support (rxtpu/cli.py:479-484)
     from rxtpu_torch.data.synthetic import make_test_fixture, randomize_
     from rxtpu_torch.train.checkpoint import save_checkpoint
@@ -379,13 +379,17 @@ def test_quant_guards(tmp_path, monkeypatch):
             "--batch-size", "2", "--device", "cpu", "--quantize", "int8"]
     with pytest.raises(SystemExit, match="--calib-batches must be >= 1"):
         port_cli.main(argv + ["--calib-batches", "0"])
-    for flag in (["--assign-method", "greedy_jax"], ["--profile"], ["--distributed"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            port_cli.main(argv + flag)
+    with pytest.raises(SystemExit, match="not ported"):
+        port_cli.main(argv + ["--distributed"])
     with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
                                          "densenet121, got resnet18/arcface"):
         port_cli.main(argv + ["--head", "arcface"])
-    assert port_cli.main(argv + ["--calib-batches", "5"]) == 0  # more than the experiment has
+    # more calibration batches than the experiment has; greedy_jax and
+    # --profile (training skipped: no trace) run on the int8 path too
+    assert port_cli.main(argv + ["--calib-batches", "5", "--assign-method", "greedy_jax",
+                                 "--profile"]) == 0
+    assert (tmp_path / "submission_g.csv").exists()
+    assert not (tmp_path / "board" / "g" / "profile").exists()
 
 
 # ---------------------------------------------------------------------------

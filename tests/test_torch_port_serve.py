@@ -110,8 +110,12 @@ def test_plate_leak_matches_rxtpu():
                                   rx_plate_leak.rescale(zero_row.copy()))
     np.testing.assert_array_equal(plate_leak.greedy_assign(probs[:c]),
                                   rx_plate_leak.greedy_assign(probs[:c]))
-    with pytest.raises(NotImplementedError):
-        plate_leak.constrained_predict(probs, plates, groups, 0, "greedy_jax")
+    # greedy_jax: rxtpu's f32 device loop, bit-equal (the port's on the CPU)
+    for etype in range(4):
+        got = plate_leak.constrained_predict(probs, plates, groups, etype, "greedy_jax")
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(
+            got, rx_plate_leak.constrained_predict(probs, plates, groups, etype, "greedy_jax"))
 
 
 def test_build_plate_groups_matches_pandas(tmp_path):
@@ -213,7 +217,8 @@ for m in mods:
     importlib.import_module(m)
 assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode", "rxtpu_torch.ops.int8_conv",
         "rxtpu_torch.models.quant", "rxtpu_torch.infer.quant",
-        "rxtpu_torch.models.densenet", "rxtpu_torch.models.heads"} <= set(mods), mods
+        "rxtpu_torch.models.densenet", "rxtpu_torch.models.heads",
+        "rxtpu_torch.utils", "rxtpu_torch.utils.profiling"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
@@ -381,9 +386,18 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     assert list(sub8.id_code) == list(sub.id_code)
     assert (pg[sub8.sirna, 0] == plates).all()
     assert all(g.sirna.is_unique for _, g in sub8.groupby(plates))
-    for flag in (["--assign-method", "greedy_jax"], ["--profile"], ["--distributed"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            port_cli.main(argv + flag)
+    # --assign-method greedy_jax on the run's device: the same plate-leak
+    # assignment as greedy here; --profile traces training only, and the
+    # best checkpoint skips it; --distributed is not ported
+    os.makedirs("gj")
+    assert port_cli.main(argv + ["--assign-method", "greedy_jax", "--profile",
+                                 "--out-dir", "gj"]) == 0
+    sub_gj = pd.read_csv("gj/submission_fx.csv")
+    assert list(sub_gj.id_code) == list(sub.id_code)
+    assert list(sub_gj.sirna) == list(sub.sirna)
+    assert not os.path.exists("board/fx/profile")
+    with pytest.raises(SystemExit, match="not ported"):
+        port_cli.main(argv + ["--distributed"])
     with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
                                          "densenet121, got resnet18/arcface"):
         port_cli.main(argv + ["--quantize", "int8", "--head", "arcface"])

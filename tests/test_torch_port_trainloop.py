@@ -284,20 +284,35 @@ def test_port_cli_trains_and_resumes(train_fixture, tmp_path, monkeypatch):
 
 
 def test_port_cli_refuses_what_is_not_ported(train_fixture, tmp_path, monkeypatch):
+    """``--checkpoint-backend orbax`` and ``--patience 0`` exit; ``--profile``
+    traces training into ``board/{id}/profile``; ``--debug`` on the CPU runs
+    rxtpu's local mode; a pickle without optax's sgd state does not resume."""
     fx, paths = train_fixture
     monkeypatch.chdir(tmp_path)
     argv = ARGV + paths
-    for flag in (["--checkpoint-backend", "orbax"], ["--profile"], ["--debug"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            port_cli.main(argv + flag)
+    with pytest.raises(SystemExit, match="not ported"):
+        port_cli.main(argv + ["--checkpoint-backend", "orbax"])
     with pytest.raises(SystemExit, match="patience"):
         port_cli.main(argv + ["--early-stopping", "--patience", "0"])
-    os.makedirs("models")
+    assert port_cli.main(argv + ["--profile", "--epochs", "1"]) == 0
+    import glob
+    import json
+
+    traces = glob.glob("board/fx/profile/*.pt.trace.json")
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert "aten::convolution" in names and "aten::cross_entropy_loss" in names
+    os.makedirs("local")
+    monkeypatch.chdir(tmp_path / "local")
+    assert port_cli.main(argv + ["--debug"]) == 0  # DummyClassifier's submission
+    assert list(pd.read_csv("submission_fx.csv").id_code) == [r["id_code"]
+                                                              for r in fx["test_rows"]]
     import pickle
 
     with open("models/last_fx.ckpt", "wb") as f:
         pickle.dump({"params": {}, "opt_state": None}, f)
-    with pytest.raises(SystemExit, match="rxtpu pickle"):
+    with pytest.raises(ValueError, match="no optax.sgd state"):
         port_cli.main(argv + ["--resume"])
 
 
