@@ -35,8 +35,28 @@ line works for both:
    one class per row (``--assign-method greedy_jax`` on the run's device)
    and write ``submission_{id}.csv``.
 
-``--distributed``, ``--model-parallel`` and ``--checkpoint-backend orbax``
-are not ported yet: they exit with a message that names them.
+Multi-GPU (rxtpu's ``--distributed`` and ``--model-parallel M``): one
+process per GPU, launched by ``torchrun --nproc-per-node N -m
+rxtpu_torch.cli --distributed [--model-parallel M] ...`` or given the
+cluster by ``--coordinator-address host:port --num-processes N
+--process-id i``. The process group forms first (NCCL on the card, gloo with
+``--device cpu``), on ``--distributed`` or whenever torchrun's
+``WORLD_SIZE`` is above 1; each rank runs on ``cuda:LOCAL_RANK``. Then
+rxtpu's pod steps: rank 0's experiment id to every rank, the stats pass on
+rank 0 while the others wait for it, the same checkpoint view on every rank. The global
+batch is ``--batch-size`` x world and the lr 0.0005 x the global batch;
+each data rank decodes its rows of every batch (``world / M`` data ranks of
+``global / (world / M)`` rows), BN syncs over the data ranks and, with M >
+1, the head's kernels split over M model ranks
+(``rxtpu_torch.parallel``). Rank 0 writes the metrics and checkpoints
+(whole weights). The test phase splits its rows over every rank, each with
+the whole head (K1, or K8 under ``--quantize int8``, on every rank), gathers
+the probabilities in row order, calibrates int8 on every rank's slices
+(max-reduced), and rank 0 writes the submission. ``--profile`` writes one
+trace per rank, named by rank.
+
+``--checkpoint-backend orbax`` is not ported: it exits with a message that
+names it.
 
     python -m rxtpu_torch.cli [--data-dir data] [--pack DIR] --experiment_id ID [--device cuda]
 """
@@ -120,8 +140,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> Optional[str]:
     """The first flag of argv whose path is not ported yet, if any."""
-    if args.distributed or args.model_parallel != 1:
-        return "--distributed / --model-parallel (multi-device)"
     if args.checkpoint_backend != "pickle":
         return f"--checkpoint-backend {args.checkpoint_backend}"
     return None
@@ -211,17 +229,30 @@ def probe_src_size(cfg: Config, index, pack: Optional[str], device: torch.device
 def load_or_compute_stats(cfg: Config, device: torch.device):
     """The stats artifact; when it is missing, computed from the image tree
     (``--image-ext``) into ``--stats`` (a ``.json`` path) or
-    ``stats_experiments.json``."""
+    ``stats_experiments.json``. In a process group rank 0 decides whether it
+    is missing and computes it alone; the others wait for it (as long as the
+    pass takes, up to ``RANK0_WAIT_S``), then read the file (N ranks would
+    repeat the pass and race to write one file)."""
     from rxtpu_torch.data.stats import load_stats
+    from rxtpu_torch.parallel.multihost import broadcast_one_to_all, is_distributed, run_on_rank0
 
-    if os.path.exists(cfg.data.stats_path):
+    missing = not os.path.exists(cfg.data.stats_path)
+    rank = torch.distributed.get_rank() if is_distributed() else 0
+    if is_distributed():
+        missing = broadcast_one_to_all(bytes([missing])) == b"\x01"
+    if not missing:
         return load_stats(cfg.data.stats_path)
-    print(f"stats artifact {cfg.data.stats_path} missing; computing...")
     from rxtpu_torch.tools import run_stats
 
     out = cfg.data.stats_path if cfg.data.stats_path.endswith(".json") \
         else "stats_experiments.json"
-    return run_stats(cfg.data.path_data, out, ext=cfg.data.image_ext, device=device)
+
+    def compute():
+        print(f"stats artifact {cfg.data.stats_path} missing; computing...")
+        return run_stats(cfg.data.path_data, out, ext=cfg.data.image_ext, device=device)
+
+    stats = run_on_rank0(compute)
+    return stats if rank == 0 else load_stats(out)
 
 
 def _store(cfg: Config, index, pack: Optional[str]):
@@ -241,9 +272,11 @@ def decoder_threads(cfg: Config) -> int:
     return 0 if cfg.local else DECODER_THREADS
 
 
-def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) -> None:
+def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int,
+                mesh=None) -> None:
     """Split, pipelines, train state and the epoch loop (``rxtpu/cli.py:314-399``),
-    under a profiler trace with ``--profile``."""
+    under a profiler trace with ``--profile``; on a ``mesh``, the data rank's
+    slices, BN synced and the head split as the mesh says."""
     from rxtpu_torch.data.pipeline import Pipeline
     from rxtpu_torch.data.records import (
         load_metadata, read_metadata_csvs, split_by_experiment, stratified_split,
@@ -280,24 +313,30 @@ def train_phase(cfg: Config, args, stats, device: torch.device, global_bs: int) 
     store_val = store if args.pack else _store(cfg, idx_val, None)
     source = dict(src_size=cfg.data.src_size, decoder_threads=decoder_threads(cfg),
                   device=device)
+    if mesh is not None:
+        source.update(num_hosts=mesh.data_size, host_id=mesh.data_rank)
     pipe_train = Pipeline(idx_train, store, stats, global_bs, "train", seed=cfg.train.seed,
                           prefetch_depth=cfg.data.prefetch_depth, two_site=args.two_site_train,
                           **source)
     pipe_val = Pipeline(idx_val, store_val, stats, global_bs, "val", seed=cfg.train.seed,
                         shuffle=False, drop_last=False, two_site=args.two_site_train, **source)
-    model = build_model(cfg)
-    state, lr = create_train_state(cfg, model, max(1, len(pipe_train)), device)
+    model = build_model(cfg, mesh)
+    state, lr = create_train_state(cfg, model, max(1, len(pipe_train)), device,
+                                   n_devices=1 if mesh is None else mesh.world)
     print(f"lr: {lr}")
     with trace(os.path.join(cfg.train.board_dir, cfg.experiment_id, "profile"),
-               enabled=args.profile):
-        result = run_training(cfg, state, pipe_train, pipe_val, device, resume=args.resume)
+               enabled=args.profile,
+               worker_name=None if mesh is None or mesh.world == 1 else f"rank{mesh.rank}"):
+        result = run_training(cfg, state, pipe_train, pipe_val, device, resume=args.resume,
+                              mesh=mesh)
     print(f"Best validation accuracy: {result.best_accuracy:.4f}")
 
 
-def quantized_step(model, pipe, args, dtype: torch.dtype, device: torch.device):
+def quantized_step(model, pipe, args, dtype: torch.dtype, device: torch.device, group=None):
     """The int8 predict step (``rxtpu/cli.py:517-532``): one calibration over
     the opening ``--calib-batches`` batches of ``pipe`` (the first
-    experiment's), one fold and quantize, reused for every experiment; the
+    experiment's; with a process ``group``, every rank's slices of them,
+    max-reduced), one fold and quantize, reused for every experiment; the
     TTA transforms of ``--tta`` (``none`` is ``[identity]``, so K1 writes
     bf16 views and the stem conv quantizes them, as in rxtpu's CLI)."""
     import itertools
@@ -308,9 +347,34 @@ def quantized_step(model, pipe, args, dtype: torch.dtype, device: torch.device):
 
     host = ({k: b[k] for k in ("images", "mean", "std")}
             for b in itertools.islice(pipe.epoch(0), args.calib_batches))
-    qstats = calibrate(model, device_prefetch(host, device), args.test_crop, dtype)
+    qstats = calibrate(model, device_prefetch(host, device), args.test_crop, dtype, group)
     return QuantPredictor(prepare_quantized(model, qstats, dtype), args.test_crop,
                           tta_transforms(args.tta), args.tta_average)
+
+
+def start_ranks(args):
+    """The process group and this rank's mesh, or None for one process
+    (``rxtpu/cli.py:242-253``): formed on ``--distributed`` or when torchrun
+    says the world is larger than 1. ``--model-parallel`` above 1 needs a
+    world it divides."""
+    from rxtpu_torch.parallel import initialize_distributed, is_distributed, make_mesh
+
+    if args.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(args.coordinator_address, args.num_processes,
+                               args.process_id, device=args.device)
+    if not is_distributed():
+        if args.model_parallel != 1:
+            raise SystemExit(f"--model-parallel {args.model_parallel} does not divide one "
+                             "process: launch one process per GPU (torchrun, or "
+                             "--distributed with the cluster flags)")
+        return None
+    try:
+        mesh = make_mesh(args.model_parallel)
+    except ValueError as e:
+        raise SystemExit(f"--model-parallel: {e}")
+    print(f"process group: {torch.distributed.get_backend()}, world {mesh.world}, rank "
+          f"{mesh.rank}, data {mesh.data_size} x model {mesh.model_parallel}")
+    return mesh
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -318,7 +382,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     missing = _not_ported(args)
     if missing:
         raise SystemExit(f"{missing} is not ported to rxtpu_torch yet")
+    mesh = start_ranks(args)
+    try:
+        return run(args, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
+
+def run(args, mesh) -> int:
+    """The train and test phases of one rank (``mesh`` None: one process)."""
     from rxtpu_torch.config import resolve_device
     from rxtpu_torch.data.pipeline import Pipeline
     from rxtpu_torch.data.records import build_plate_groups, load_metadata, read_csv, read_metadata_csvs
@@ -326,14 +399,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     from rxtpu_torch.infer.predict import Predictor, predict_dataset
     from rxtpu_torch.infer.submit import write_submission
     from rxtpu_torch.models.twosites import DummyClassifier
-    from rxtpu_torch.train.checkpoint import checkpoint_exists, load_checkpoint
+    from rxtpu_torch.parallel.multihost import barrier, broadcast_one_to_all
+    from rxtpu_torch.train.checkpoint import (
+        assert_consistent_checkpoint_view, checkpoint_exists, load_checkpoint,
+    )
     from rxtpu_torch.train.loop import last_checkpoint_path
     from rxtpu_torch.train.setup import build_model
 
     cfg = resolve_config(args)
     device = resolve_device(args.device)
-    global_bs = global_batch_size(cfg, 1)
-    print(f"Devices: 1 ({device.type}), global batch {global_bs}")
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    if device.type == "cuda" and mesh is not None:
+        device = torch.device("cuda", torch.cuda.current_device())  # the rank's card
+    if world > 1 and args.experiment_id is None:
+        # the timestamp default can differ across processes: agree on rank 0's
+        cfg.experiment_id = broadcast_one_to_all(cfg.experiment_id.encode()).decode()
+    global_bs = global_batch_size(cfg, world)
+    print(f"Devices: {world} ({device.type}), global batch {global_bs}"
+          + (f", rank {rank}/{world}, model parallel {mesh.model_parallel}" if world > 1 else ""))
 
     stats = load_or_compute_stats(cfg, device)
 
@@ -341,9 +424,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     # phase-skip when a best checkpoint exists, unless --resume finds a
     # rolling one (resuming a finished run is a cheap no-op)
     last_path = last_checkpoint_path(cfg)
+    if world > 1:  # the gates below branch on file existence: ranks must agree
+        assert_consistent_checkpoint_view(ckpt_path, last_path)
     resume_pending = args.resume and checkpoint_exists(last_path)
     if not checkpoint_exists(ckpt_path) or resume_pending:
-        train_phase(cfg, args, stats, device, global_bs)
+        train_phase(cfg, args, stats, device, global_bs, mesh)
 
     print("\n\n########## TEST ##########")
     test_rows, test_controls = read_metadata_csvs(cfg.data.path_metadata, "test")
@@ -403,6 +488,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     # experiment wide
     pack_store = _store(cfg, idx_test_all, args.pack) if args.pack else None
     dtype = getattr(torch, cfg.model.compute_dtype)
+    # the test rows split over every rank, each with the whole (folded) head
+    group = torch.distributed.group.WORLD if world > 1 else None
     if cfg.local:  # fed the raw views (rxtpu/cli.py:564-566)
         step = DummyClassifier(nb_classes=cfg.model.nb_classes)
     elif use_int8:
@@ -414,10 +501,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     for i, experiment in enumerate(experiments):
         idx_exp = idx_test_all.for_experiment(experiment)
         pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
-                        src_size=src_size, decoder_threads=decoder_threads(cfg), device=device)
+                        src_size=src_size, decoder_threads=decoder_threads(cfg), device=device,
+                        num_hosts=world, host_id=rank)
         if step is None:
-            step = quantized_step(model, pipe, args, dtype, device)
-        probs, ids = predict_dataset(step, pipe, device)
+            step = quantized_step(model, pipe, args, dtype, device, group)
+        probs, ids = predict_dataset(step, pipe, device, group)
         exp_rows = [r for r in test_rows if r["experiment"] == experiment]
         if [r["id_code"] for r in exp_rows] != ids:
             raise RuntimeError(f"prediction rows of {experiment} do not follow test.csv")
@@ -430,9 +518,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         pred_by_id.update(zip(ids, preds))
 
     id_codes = [r["id_code"] for r in test_rows]
-    path = write_submission(id_codes, np.asarray([pred_by_id[i] for i in id_codes]),
-                            cfg.experiment_id, args.out_dir)
-    print(f"wrote {path}")
+    if rank == 0:  # the predictions are on every rank; one writes the file
+        path = write_submission(id_codes, np.asarray([pred_by_id[i] for i in id_codes]),
+                                cfg.experiment_id, args.out_dir)
+        print(f"wrote {path}")
+    barrier()
     return 0
 
 

@@ -24,7 +24,14 @@ stream position)``, as in rxtpu, so batches are bit-equal to rxtpu's and a
 mid-epoch resume (``epoch(e, start_batch)``) replays the same stream.
 Batches carry ``images`` uint8 [B, G, C, H, W], ``labels`` (sirna; -1 for
 test rows), per-sample ``mean``/``std``, ``valid`` and ``id_codes``, padded
-to ``batch_size`` (``valid`` = 0, ``id_codes`` = ""). A background thread
+to ``batch_size`` (``valid`` = 0, ``id_codes`` = ""). With ``num_hosts`` >
+1 (a data rank of ``rxtpu_torch.parallel``) every host builds the same
+global epoch order and assembles only its rows ``host_shard_bounds(
+batch_size, num_hosts, host_id)`` of each global batch of ``batch_size``:
+the view draws stay keyed by the global row, so the hosts' slices
+concatenate to the one-host batch bit for bit; ``id_codes`` are the host's
+rows' (rxtpu's span the global batch: the port gathers predictions with
+their ids, ``rxtpu_torch.infer.predict.predict_dataset``). A background thread
 assembles batches ahead into a bounded queue; ``device_prefetch`` queues
 the next batch's copy to the card from pinned host memory before the
 current batch is handed out.
@@ -43,6 +50,7 @@ from rxtpu_torch.data.decode import decode_batch, decode_files
 from rxtpu_torch.data.pack import PackStore
 from rxtpu_torch.data.records import MetadataIndex, WellRecord, all_records, image_path
 from rxtpu_torch.data.stats import Stats, stats_table
+from rxtpu_torch.parallel.multihost import host_shard_bounds
 
 
 class ByteStore:
@@ -85,14 +93,6 @@ class ByteStore:
         return self._read(r, site) if cached is None else cached
 
 
-def host_shard_bounds(global_batch: int, num_hosts: int, host_id: int) -> Tuple[int, int]:
-    """[start, stop) rows of a global batch owned by ``host_id``."""
-    if global_batch % num_hosts:
-        raise ValueError(f"batch {global_batch} does not split over {num_hosts} hosts")
-    per_host = global_batch // num_hosts
-    return host_id * per_host, (host_id + 1) * per_host
-
-
 class _NpRandom:
     """numpy Generator -> the ``randrange`` that ``control_views`` uses."""
 
@@ -110,15 +110,21 @@ class Pipeline:
     own), ``decoder_threads`` the decode or inflate pool's threads (0: every
     core) and ``device`` where images decode (``images`` is then a tensor
     there; a pack's batches stay numpy until ``device_prefetch``).
+    ``batch_size`` is the global batch; ``num_hosts`` / ``host_id`` pick
+    this host's rows of it.
     """
 
     def __init__(self, index: MetadataIndex, store: Union[PackStore, ByteStore],
                  stats: Stats, batch_size: int, mode: str = "test", seed: int = 0,
                  shuffle: Optional[bool] = None, drop_last: Optional[bool] = None,
                  prefetch_depth: int = 2, two_site: bool = False,
-                 src_size: Optional[int] = None, decoder_threads: int = 0, device="cpu"):
+                 src_size: Optional[int] = None, decoder_threads: int = 0, device="cpu",
+                 num_hosts: int = 1, host_id: int = 0):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode must be train, val or test, got {mode!r}")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} is not in [0, {num_hosts})")
+        self.rows = host_shard_bounds(batch_size, num_hosts, host_id)
         if isinstance(store, ByteStore) and src_size is None:
             raise ValueError("a ByteStore pipeline needs src_size")
         self.index = index
@@ -163,13 +169,13 @@ class Pipeline:
     def _make_batch(self, recs: List[WellRecord], epoch: int, row0: int
                     ) -> Dict[str, object]:
         g, c, s = self.G, self.n_channels, self.src_size
-        lo, hi = host_shard_bounds(self.batch_size, 1, 0)
+        lo, hi = self.rows
         bs = hi - lo
         n_real = len(recs)
         labels = np.zeros(bs, np.int32)
         exp_ids = np.zeros(bs, np.int32)
         valid = np.zeros(bs, np.float32)
-        id_codes = [recs[i].id_code if i < n_real else "" for i in range(self.batch_size)]
+        id_codes = [recs[i].id_code if i < n_real else "" for i in range(lo, hi)]
         keys = []
         for k, i in enumerate(range(lo, hi)):
             r = recs[i] if i < n_real else recs[0]  # pad with sample 0, masked

@@ -11,6 +11,9 @@ the whole stem on the raw batch and the twin goes on from the stem's maps
 test ``Pipeline`` and drops the padding rows by their empty ``id_codes``;
 given a ``DummyClassifier`` (``--debug`` local mode) it feeds it the raw
 views and takes the softmax of its logits, as rxtpu's ``model_fn`` path.
+With a process ``group`` each rank predicts its rows (its ``Pipeline``
+slice, with the whole head) and the probabilities and ids are gathered in
+global row order to every rank, as rxtpu replicates its predictions.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
 from rxtpu_torch.infer.fold import fold
 from rxtpu_torch.models.twosites import DummyClassifier, TwoSitesNN
+from rxtpu_torch.parallel.multihost import all_gather_objects, all_gather_rows, comm_device
 
 View = Callable[[torch.Tensor], torch.Tensor]
 
@@ -96,10 +100,12 @@ def average_variants(net: Callable, views: torch.Tensor, transforms: List[View],
     return acc if average == "probs" else torch.softmax(acc, dim=-1)
 
 
-def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device
+def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device, group=None
                     ) -> Tuple[np.ndarray, List[str]]:
     """(probs [N, classes], id_codes [N]) for a test pipeline, padding removed.
-    ``step`` maps a batch to probabilities, or is a ``DummyClassifier``."""
+    ``step`` maps a batch to probabilities, or is a ``DummyClassifier``.
+    ``group``: the process group whose ranks hold ``pipe``'s slices, in
+    rank order."""
     if isinstance(step, DummyClassifier):
         dummy = step
 
@@ -107,11 +113,19 @@ def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device
             return torch.softmax(dummy(batch["images"]), dim=-1)
     # the keep mask comes from id_codes, so `valid` never goes to the device
     host_batches = ({k: v for k, v in b.items() if k != "valid"} for b in pipe.epoch(0))
-    all_probs, all_ids = [], []
+    probs, ids = [], []
     for batch in device_prefetch(host_batches, device):
-        id_codes = batch.pop("id_codes")
-        probs = step(batch).cpu().numpy()
-        keep = np.asarray([i != "" for i in id_codes])
-        all_probs.append(probs[keep])
-        all_ids.extend(i for i in id_codes if i != "")
-    return np.concatenate(all_probs, axis=0), all_ids
+        ids.append(batch.pop("id_codes"))
+        probs.append(step(batch).cpu())  # a readback per batch bounds the work in flight
+    probs_t = torch.cat(probs)
+    if group is not None:
+        # [ranks * batches * rows] in rank order -> batch by batch, ranks within
+        n_batches, rows = len(ids), len(ids[0])
+        probs_t = all_gather_rows(probs_t.to(comm_device()), group).cpu()
+        probs_t = probs_t.reshape((-1, n_batches, rows) + tuple(probs_t.shape[1:]))
+        probs_t = probs_t.transpose(0, 1).reshape((-1,) + tuple(probs_t.shape[3:]))
+        parts = all_gather_objects(ids, group)
+        ids = [part[b] for b in range(n_batches) for part in parts]
+    flat_ids = [i for batch_ids in ids for i in batch_ids]
+    keep = np.asarray([i != "" for i in flat_ids])
+    return probs_t.numpy()[keep], [i for i in flat_ids if i != ""]

@@ -68,12 +68,16 @@ def _require_quantizable(model) -> None:
 
 @torch.inference_mode()
 def calibrate(model: TwoSitesNN, batches: Iterable[Dict[str, torch.Tensor]],
-              crop_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16) -> QStats:
+              crop_size: Optional[int] = None, dtype: torch.dtype = torch.bfloat16,
+              group=None) -> QStats:
     """Each backbone conv's input and output absmax (f32, scalar and per
     channel), and DenseNet's segment ranges, over ``batches`` (``images``,
     ``mean``, ``std`` on the model's device), through the normalize and the
     eval forward the predict step uses (folded, or DenseNet's unfolded), in
-    ``dtype``."""
+    ``dtype``. With a process ``group`` (each rank's ``batches`` its slices)
+    every observation is max-reduced over the ranks: every rank derives the
+    same ``qstats``, those of the whole batches (MAX is exact), as rxtpu
+    calibrates on globally assembled batches."""
     _require_quantizable(model)
     if _is_densenet(model):
         twin = unfolded_twin(model, dtype)
@@ -88,7 +92,17 @@ def calibrate(model: TwoSitesNN, batches: Iterable[Dict[str, torch.Tensor]],
             n += 1
     if n == 0:
         raise ValueError("calibration needs at least one batch")
+    if group is not None:
+        for v in _leaves(observer.stats):
+            torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX, group=group)
     return observer.stats
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a ``QStats`` tree, in its (insertion) order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def _scale(absmax: torch.Tensor) -> torch.Tensor:

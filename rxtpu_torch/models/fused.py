@@ -8,12 +8,14 @@ conv weights), ``BottleneckFused`` (K6 forward, K7 backward) runs the block,
 and its BatchNorms' running statistics move as the unfused block's would.
 The state dict is the same whether a block runs fused or not, so
 checkpoints, ``from_flax``, the pretrained port, freezing and folding are
-unchanged.
+unchanged. Blocks whose BatchNorms sync over a process group (``group``, the
+data ranks) take the batch statistics over every rank's rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from rxtpu_torch.ops.fused_block import bottleneck_fused, conv1x1_to_mat, conv3x3_to_taps
 
@@ -24,7 +26,8 @@ def fused_bottleneck(block, x: torch.Tensor, height: int, width: int) -> torch.T
 
     The running statistics move as ``m*old + (1 - m)*batch`` (m = the
     BatchNorm's momentum, 0.9), the variance stored unbiased with Bessel's
-    ``n/(n-1)`` over ``n = N*H*W`` (``rxtpu/models/fused.py:139-151``).
+    ``n/(n-1)`` over ``n = N*H*W`` (``rxtpu/models/fused.py:139-151``),
+    every rank's ``N`` with the BatchNorms' ``group``.
     """
     bns = [block.BatchNorm_0, block.BatchNorm_1, block.BatchNorm_2]
     params = {"w1": conv1x1_to_mat(block.Conv_0.weight),
@@ -36,8 +39,9 @@ def fused_bottleneck(block, x: torch.Tensor, height: int, width: int) -> torch.T
         params["wp"] = conv1x1_to_mat(block.conv_proj.weight)
         params["gp"], params["bp"] = block.norm_proj.weight, block.norm_proj.bias
         bns.append(block.norm_proj)
-    y, stats = bottleneck_fused(x, params, height, width, bns[0].eps)
-    n = x.shape[0] * height * width
+    group = bns[0].group
+    y, stats = bottleneck_fused(x, params, height, width, bns[0].eps, group)
+    n = x.shape[0] * height * width * (1 if group is None else dist.get_world_size(group))
     with torch.no_grad():
         for bn, (mean, var) in zip(bns, stats.values()):
             m = bn.momentum

@@ -11,6 +11,11 @@ matmuls. Logits come out in at least f32.
 ReLU -> BatchNorm1d to the embedding, then cosines against L2-normalised
 class weights, with the additive angular margin on the target class in
 train mode when labels are given.
+
+``tp_group`` (rxtpu's ``--model-parallel``): each 2-D kernel of the head
+(the MLP head's fc1 and fc2, the ArcFace head's fc1) is a
+``ColumnParallelLinear`` over that process group, holding its rank's rows
+of the weight once ``rxtpu_torch.parallel.place_state`` has sliced them.
 """
 
 from __future__ import annotations
@@ -25,20 +30,45 @@ from torch import nn
 
 from rxtpu_torch.models.norm import BatchNorm, Dropout
 from rxtpu_torch.models.resnet import compute_dtype
+from rxtpu_torch.parallel.multihost import copy_to_group, gather_last_dim
+
+
+class ColumnParallelLinear(nn.Linear):
+    """``nn.Linear`` split on its output dim over ``group`` (None: the plain
+    layer). Each rank holds ``weight`` rows ``[r*k, (r+1)*k)`` of the whole
+    ``[out, in]`` weight and computes that slice of the output, which is
+    gathered over the group; the replicated bias is added after the gather.
+    The input reaches every rank whole, so its gradient, partial on each
+    rank, is summed over the group; the gather's backward keeps the rank's
+    own slice (every rank computes the same loss from the whole output)."""
+
+    def __init__(self, in_features: int, out_features: int, group: Optional[object] = None):
+        super().__init__(in_features, out_features)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return super().forward(x)
+        size = torch.distributed.get_world_size(self.group)
+        if self.weight.shape[0] * size != self.out_features:
+            raise RuntimeError(f"{tuple(self.weight.shape)} is not a 1/{size} shard of "
+                               f"[{self.out_features}, {self.in_features}]: place_state first")
+        y = gather_last_dim(F.linear(copy_to_group(x, self.group), self.weight), self.group)
+        return y + self.bias.to(y.dtype)
 
 
 class MLPHead(nn.Module):
     def __init__(self, in_features: int, nb_classes: int,
                  size_features: int = 1024, dropout: float = 0.3,
-                 folded: bool = False):
+                 folded: bool = False, tp_group: Optional[object] = None):
         super().__init__()
         self.folded = folded
         if not folded:
             self.bn1 = BatchNorm(in_features)
             self.bn2 = BatchNorm(size_features)
         self.drop = Dropout(dropout)
-        self.fc1 = nn.Linear(in_features, size_features)
-        self.fc2 = nn.Linear(size_features, nb_classes)
+        self.fc1 = ColumnParallelLinear(in_features, size_features, tp_group)
+        self.fc2 = ColumnParallelLinear(size_features, nb_classes, tp_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = compute_dtype(self.fc1.weight)
@@ -64,13 +94,14 @@ class ArcFaceHead(nn.Module):
     """
 
     def __init__(self, in_features: int, nb_classes: int, size_features: int = 1024,
-                 dropout: float = 0.3, margin: float = 0.3, scale: float = 30.0):
+                 dropout: float = 0.3, margin: float = 0.3, scale: float = 30.0,
+                 tp_group: Optional[object] = None):
         super().__init__()
         self.margin, self.scale = margin, scale
         self.folded = False  # nothing folds into this head (rxtpu/models/twosites.py:78)
         self.bn1 = BatchNorm(in_features)
         self.drop = Dropout(dropout)
-        self.fc1 = nn.Linear(in_features, size_features)
+        self.fc1 = ColumnParallelLinear(in_features, size_features, tp_group)
         self.bn2 = BatchNorm(size_features)
         self.weight = nn.Parameter(torch.empty(size_features, nb_classes))
         nn.init.normal_(self.weight, 0.0, math.sqrt(1.0 / size_features))

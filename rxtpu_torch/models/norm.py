@@ -16,21 +16,34 @@ torch's (``weight``, ``bias``, ``running_mean``, ``running_var``).
 
 An f64 input keeps its statistics in f64, so a whole step can run in f64
 as a reference for the f32 ones.
+
+With ``group`` (a process group: the data ranks), train mode is rxtpu's
+``axis_name`` BN (SyncBN): E[x] and E[x^2] are averaged over the group in
+one concatenated all-reduce, whose backward all-reduces too, and ``n`` is
+the global count for Bessel's correction. Without it (world 1) the path is
+the single-process one. ``Dropout`` given ``rows = (first, total)`` draws
+the mask of the global batch of ``total`` rows and keeps its own rows, so a
+rank's rows drop what they drop at world 1 (None: the whole batch is
+``x``'s).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from rxtpu_torch.parallel.multihost import all_reduce_sum
+
 
 class BatchNorm(nn.Module):
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 group: Optional[object] = None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.group = group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -47,8 +60,13 @@ class BatchNorm(nn.Module):
         dims = [0] + list(range(2, x.ndim))
         xf = x.to(sdt)
         mean = xf.mean(dims)
-        var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
+        mean2 = xf.square().mean(dims)
         n = x.numel() // x.shape[1]
+        if self.group is not None:
+            size = torch.distributed.get_world_size(self.group)
+            mean, mean2 = (all_reduce_sum(torch.cat([mean, mean2]), self.group) / size).chunk(2)
+            n *= size
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -68,10 +86,14 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        first, total = self.rows or (0, x.shape[0])
+        u = torch.rand((total,) + tuple(x.shape[1:]), generator=self.generator,
+                       device=x.device)[first:first + x.shape[0]]
+        keep = u < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

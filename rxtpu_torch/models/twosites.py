@@ -18,6 +18,14 @@ as ``rxtpu_torch.infer.quant.prepare_quantized`` builds it.
 ``DummyClassifier`` is the random-logit stand-in of ``--debug`` on the CPU
 (local mode), rxtpu's ``DummyClassifier`` drawn from a ``torch.Generator``.
 
+``mesh`` (``rxtpu_torch.parallel.make_mesh``, rxtpu's ``--distributed`` and
+``--model-parallel``): every train-mode BN of the backbone and the head
+reduces over the data ranks (``mesh.bn_group``, rxtpu's ``bn_axis_name``),
+the head's kernels split over the model ranks (``mesh.tp_group``); the
+fused blocks (K6/K7) sum their BN sums over the data ranks too, as rxtpu's
+fused blocks see the whole batch under GSPMD. The mesh is not part of
+``arch``: the eval and int8 twins are plain single-rank models.
+
 ``head="arcface"`` is the cosine-margin head (BASELINE config 4, with
 ``control_calibration`` its control-well embedding calibration):
 ``forward(x, labels)`` passes the labels to it, and in train mode the target
@@ -32,7 +40,7 @@ from torch import nn
 from typing import Optional
 
 from rxtpu_torch.models.heads import ArcFaceHead, MLPHead
-from rxtpu_torch.models.norm import Dropout
+from rxtpu_torch.models.norm import BatchNorm, Dropout
 from rxtpu_torch.models.resnet import compute_dtype, make_backbone
 
 
@@ -42,7 +50,7 @@ class TwoSitesNN(nn.Module):
                  head: str = "mlp", control_calibration: bool = False,
                  arcface_margin: float = 0.3, arcface_scale: float = 30.0,
                  folded: bool = False, stem_input: bool = False,
-                 fuse_blocks: bool = False, quantized: bool = False):
+                 fuse_blocks: bool = False, quantized: bool = False, mesh=None):
         super().__init__()
         if head not in ("mlp", "arcface"):
             raise ValueError(f"unknown head {head!r}")
@@ -55,17 +63,22 @@ class TwoSitesNN(nn.Module):
                          arcface_margin=arcface_margin, arcface_scale=arcface_scale,
                          fuse_blocks=fuse_blocks)
         self.control_calibration = control_calibration
+        bn_group = None if mesh is None else mesh.bn_group
+        tp_group = None if mesh is None else mesh.tp_group
         self.backbone = make_backbone(backbone, folded=folded, stem_input=stem_input,
                                       fuse_blocks=fuse_blocks, quantized=quantized)
         in_features = 3 * self.backbone.num_features
         if head == "arcface":
             self.head = ArcFaceHead(in_features, nb_classes, size_features, dropout,
-                                    arcface_margin, arcface_scale)
+                                    arcface_margin, arcface_scale, tp_group=tp_group)
         else:
             # a quantized ResNet's head is folded; DenseNet's keeps its BNs
             fold_head = folded or (quantized and backbone.startswith("resnet"))
             self.head = MLPHead(in_features, nb_classes, size_features, dropout,
-                                folded=fold_head)
+                                folded=fold_head, tp_group=tp_group)
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.group = bn_group
         self.quant_dtype: Optional[torch.dtype] = None  # set by prepare_quantized
 
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -92,10 +105,12 @@ class TwoSitesNN(nn.Module):
                 return self.head(grouped)
         return self.head(grouped)
 
-    def set_dropout_generator(self, generator) -> None:
+    def set_dropout_generator(self, generator, rows=None) -> None:
+        """Every dropout's generator, and ``rows`` (first, total) of the
+        global batch that this rank's rows are (None: the whole batch)."""
         for mod in self.modules():
             if isinstance(mod, Dropout):
-                mod.generator = generator
+                mod.generator, mod.rows = generator, rows
 
 
 class DummyClassifier:

@@ -15,7 +15,7 @@ from rxtpu_torch.ops.shear import (
 )
 from rxtpu_torch.ops.warp import (
     apply_affine_warp, augment_batch, center_crop_normalize_reference, reflect101,
-    sample_affine_params,
+    sample_affine_params, sample_view_params,
 )
 
 
@@ -33,7 +33,9 @@ def get_augment_fn(backend: str = "shear"):
     'gather' — the exact one-pass bilinear warp, plain torch;
     'none'   — passthrough of views that are already augmented.
     Each takes ``(images, mean, std, generator, crop_size=, train=,
-    out_dtype=)`` and returns NCHW views ``[B, G, C, crop, crop]``.
+    out_dtype=, rows=)`` and returns NCHW views ``[B, G, C, crop, crop]``;
+    ``rows = (first, total)`` draws a data rank's rows of the global batch's
+    parameters (``sample_view_params``).
     """
     if backend == "shear":
         return augment_batch_shear
@@ -51,6 +53,6 @@ __all__ = [
     "crop_normalize_reference", "decompose_angle", "dihedral", "dihedral_bits",
     "eval_batch_normalize", "eval_batch_stem", "fused_stem", "fused_stem_reference",
     "get_augment_fn", "mat_to_conv1x1", "reflect101", "rotate_crop_normalize",
-    "rotate_crop_normalize_fused", "sample_affine_params", "shear_pass",
+    "rotate_crop_normalize_fused", "sample_affine_params", "sample_view_params", "shear_pass",
     "shear_pass_finish", "shear_pass_rows", "stem_out_size", "taps_to_conv3x3",
 ]

@@ -41,6 +41,12 @@ many kernel launches the body takes. Per-channel vectors are 1-D f32 ``[C]``
 ``BottleneckFused`` is the ``torch.autograd.Function`` (rxtpu's
 ``custom_vjp``) and ``bottleneck_fused`` its entry point; the layout
 helpers convert ``nn.Conv2d`` weights to the kernels' layouts and back.
+Given a process group (the data ranks), it is SyncBN: each BN's per-channel
+sums, forward and backward, are summed over the group in one all-reduce
+before they are used, and the count is the group's rows, so every rank's
+rows are normalized with the global batch's statistics (rxtpu's fused
+block under GSPMD sees the whole batch); the parameters' gradients keep the
+rank's own sums, for the train step's gradient all-reduce.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -303,11 +310,11 @@ def _p(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _ok(err: int, what: str) -> None:
+def _launch(what: str, t: torch.Tensor, fn, *args) -> None:
+    """``fn(*args, stream)`` with ``t``'s device current (the launches and
+    their shared-memory limits use the current device) on its current stream."""
+    with torch.cuda.device(t.device):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(t.device.index))
     if err != 0:
         raise RuntimeError(f"fused_block {what} launch failed: CUDA error {err}")
 
@@ -324,8 +331,7 @@ def _reduce(part: torch.Tensor) -> torch.Tensor:
     # above 64 partials a first pass sums groups of 64 into tmp
     tmp = torch.empty((-(-chunks // 64), size), dtype=F32, device=part.device) if chunks > 64 \
         else out
-    _ok(_lib().rxtpu_fb_reduce(_p(part), _p(tmp), _p(out), chunks, size, _stream(part)),
-        "reduce")
+    _launch("reduce", part, _lib().rxtpu_fb_reduce, _p(part), _p(tmp), _p(out), chunks, size)
     return out
 
 
@@ -359,7 +365,7 @@ def _gemm(mode, epi, a: _ASrc, w, rows, device, *, w2=None, out=None, out_col=0,
         e_scale=_p(e_scale), e_shift=_p(e_shift), e_mean=_p(e_mean), e_inv=_p(e_inv),
         e_k=_p(e_k), e_da=_p(e_da), e_db=_p(e_db),
         part0=_p(part), w2=_p(w2), k_split=k_split)
-    _ok(_lib().rxtpu_fb_pipe_gemm(ctypes.byref(args), _stream(w)), "gemm")
+    _launch("gemm", w, _lib().rxtpu_fb_pipe_gemm, ctypes.byref(args))
     return None if part is None else tuple(_reduce(part))
 
 
@@ -400,7 +406,7 @@ def _wgrad(mode, a: _ASrc, k, d, n, rows, *, d_col=0, taps=1) -> torch.Tensor:
     part = torch.empty((chunks, taps, k, n), dtype=F32, device=d.device)
     args = _WgradArgs(a=a, mode=mode, taps=taps, d=_p(d), ldd=d.shape[1], rows=rows, k=k, n=n,
                       d_col=d_col, chunk_rows=chunk_rows, part=_p(part))
-    _ok(_lib().rxtpu_fb_pipe_wgrad(ctypes.byref(args), _stream(d)), "wgrad")
+    _launch("wgrad", d, _lib().rxtpu_fb_pipe_wgrad, ctypes.byref(args))
     out = _reduce(part)
     return out if taps > 1 else out[0]
 
@@ -411,7 +417,7 @@ def _bn_bwd(g, c, k, da, db, mean, inv, out, out_col=0) -> None:
     args = _BnBwdArgs(g=_p(g), c=_p(c), ld=n, k=_p(k), da=_p(da), db=_p(db), mean=_p(mean),
                       inv=_p(inv), out=_p(out), ldo=out.shape[1], rows=rows, n=n,
                       out_col=out_col)
-    _ok(_lib().rxtpu_fb_bn_backward(ctypes.byref(args), _stream(g)), "bn_backward")
+    _launch("bn_backward", g, _lib().rxtpu_fb_bn_backward, ctypes.byref(args))
 
 
 # ---------------------------------------------------------------------------
@@ -606,6 +612,16 @@ class Folded(NamedTuple):
     shift: torch.Tensor
 
 
+def _group_sums(group, *sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-channel sums -> their sums over ``group``, in one all-reduce
+    (unchanged without a group)."""
+    if group is None:
+        return sums
+    flat = torch.cat(sums)
+    dist.all_reduce(flat, group=group)
+    return flat.split([t.numel() for t in sums])
+
+
 def finalize(s, q, gamma, beta, count: float, eps: float) -> Folded:
     """rxtpu's ``_finalize``: batch statistics and the folded ``scale``,
     ``shift`` from the sums (one-pass variance, clamped at 0)."""
@@ -620,9 +636,10 @@ _PARAMS = ("w1", "w2", "w3", "g1", "b1", "g2", "b2", "g3", "b3", "wp", "gp", "bp
 
 
 class BottleneckFused(torch.autograd.Function):
-    """``forward(ctx, x, height, width, eps, w1, w2, w3, g1, b1, g2, b2, g3,
-    b3, wp, gp, bp)`` -> ``y`` and the batch ``(mean, var)`` of bn1, bn2,
-    bn3 (and bnp), the statistics without a gradient.
+    """``forward(ctx, x, height, width, eps, group, w1, w2, w3, g1, b1, g2,
+    b2, g3, b3, wp, gp, bp)`` -> ``y`` and the batch ``(mean, var)`` of bn1,
+    bn2, bn3 (and bnp), the statistics without a gradient; over the rows of
+    every rank of ``group`` (None: this rank's).
 
     ``x`` is a bf16 ``[R, C]`` slab; the weights are in the kernels' layouts
     (``w1 [C, F]``, ``w2 [9, F, F]``, ``w3 [F, 4F]``, ``wp [C, 4F]``; ``wp``,
@@ -633,27 +650,27 @@ class BottleneckFused(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, height, width, eps, w1, w2, w3, g1, b1, g2, b2, g3, b3, wp=None, gp=None,
-                bp=None):
+    def forward(ctx, x, height, width, eps, group, w1, w2, w3, g1, b1, g2, b2, g3, b3, wp=None,
+                gp=None, bp=None):
         with torch.autocast(x.device.type, enabled=False):
-            count = float(x.shape[0])
+            count = float(x.shape[0] * (1 if group is None else dist.get_world_size(group)))
             w1b, w2b, w3b = (w.to(BF16).contiguous() for w in (w1, w2, w3))
             wpb = None if wp is None else wp.to(BF16).contiguous()
 
             def fold(s, q, gamma, beta):
                 return finalize(s, q, gamma.to(F32), beta.to(F32), count, eps)
 
-            r1 = k1(x, w1b, wpb)
-            c1 = r1[0]
-            f1 = fold(r1[1], r1[2], g1, b1)
-            fp = None if wp is None else fold(r1[3], r1[4], gp, bp)
+            c1, *s1 = k1(x, w1b, wpb)
+            s1 = _group_sums(group, *s1)
+            f1 = fold(s1[0], s1[1], g1, b1)
+            fp = None if wp is None else fold(s1[2], s1[3], gp, bp)
             c2, s2, q2 = k2(c1, f1.scale, f1.shift, w2b, height, width)
-            f2 = fold(s2, q2, g2, b2)
-            f3 = fold(*k3(c2, f2.scale, f2.shift, w3b), g3, b3)
+            f2 = fold(*_group_sums(group, s2, q2), g2, b2)
+            f3 = fold(*_group_sums(group, *k3(c2, f2.scale, f2.shift, w3b)), g3, b3)
             y = k4(c2, x, f2.scale, f2.shift, w3b, f3.scale, f3.shift, wpb,
                    *((None, None) if fp is None else (fp.scale, fp.shift)))
         folded = [f1, f2, f3] + ([] if fp is None else [fp])
-        ctx.height, ctx.width = height, width
+        ctx.height, ctx.width, ctx.group = height, width, group
         ctx.dtypes = [None if t is None else t.dtype for t in (w1, w2, w3, g1, b1, g2, b2, g3, b3,
                                                                wp, gp, bp)]
         ctx.save_for_backward(x, c1, c2, y, w1b, w2b, w3b, wpb,
@@ -667,38 +684,44 @@ class BottleneckFused(torch.autograd.Function):
         x, c1, c2, y, w1b, w2b, w3b, wpb, *flat = ctx.saved_tensors
         f1, f2, f3, fp = (flat[i:i + 4] for i in range(0, 16, 4))  # (mean, inv, scale, shift)
         proj = wpb is not None
+        group = ctx.group
         with torch.autocast(x.device.type, enabled=False):
-            count = float(x.shape[0])
+            count = float(x.shape[0] * (1 if group is None else dist.get_world_size(group)))
             dy = dy.to(BF16).contiguous()
             r1 = b1(dy, y, c2, f2[2], f2[3], w3b, f3[0], f3[1],
                     *((x, wpb, fp[0], fp[1]) if proj else ()))
             s3a, s3b = r1[:2]
-            g2, dw3, s2a, s2b = b2(dy, y, c2, f2[2], f2[3], w3b, f3[0], f3[1], f3[2], s3a / count,
-                                   s3b / count, f2[0], f2[1])
-            g1, dw2, s1a, s1b = b3(g2, c1, c2, f1[2], f1[3], f2[2], s2a / count, s2b / count,
+            m3 = [t / count for t in _group_sums(group, *r1)]  # (s3a, s3b[, spb]) over the group
+            g2, dw3, s2a, s2b = b2(dy, y, c2, f2[2], f2[3], w3b, f3[0], f3[1], f3[2], m3[0],
+                                   m3[1], f2[0], f2[1])
+            m2 = [t / count for t in _group_sums(group, s2a, s2b)]
+            g1, dw2, s1a, s1b = b3(g2, c1, c2, f1[2], f1[3], f2[2], m2[0], m2[1],
                                    f2[0], f2[1], w2b, f1[0], f1[1], ctx.height, ctx.width)
-            proj_args = (wpb, fp[2], s3a / count, r1[2] / count, fp[0], fp[1]) if proj else ()
-            dx, dw1, *dwp = b4(g1, c1, x, dy, y, f1[2], s1a / count, s1b / count, f1[0], f1[1],
+            m1 = [t / count for t in _group_sums(group, s1a, s1b)]
+            proj_args = (wpb, fp[2], m3[0], m3[2], fp[0], fp[1]) if proj else ()
+            dx, dw1, *dwp = b4(g1, c1, x, dy, y, f1[2], m1[0], m1[1], f1[0], f1[1],
                                w1b, *proj_args)
+        # the affine parameters' gradients: this rank's sums
         grads = [dw1, dw2, dw3, s1b, s1a, s2b, s2a, s3b, s3a]
         # the same upstream g3 feeds both paths: bp's gradient is b3's
         grads += [dwp[0], r1[2], s3a] if proj else [None, None, None]
         grads = [None if g is None else g.to(dt) for g, dt in zip(grads, ctx.dtypes)]
-        return (dx, None, None, None, *grads)
+        return (dx, None, None, None, None, *grads)
 
 
 def bottleneck_fused(x: torch.Tensor, params: Dict[str, torch.Tensor], height: int, width: int,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, group=None):
     """The fused train-mode bottleneck on ``x [V, H*W, C]`` (cast to bf16):
     ``(y [V, H*W, 4F] bf16, stats)`` with ``stats`` mapping bn1, bn2, bn3
     (and bnp) to their batch ``(mean, var)``, as rxtpu's ``bottleneck_fused``
     (without its pad rows). ``params``: w1 ``[C, F]``, w2 ``[9, F, F]``
     (taps in ``(ky, kx)`` row-major order), w3 ``[F, 4F]``, g1/b1, g2/b2,
-    g3/b3, and wp ``[C, 4F]``, gp/bp for the projection."""
+    g3/b3, and wp ``[C, 4F]``, gp/bp for the projection. ``group``: the
+    process group whose ranks' rows make up the batch (SyncBN)."""
     v, p, c = x.shape
     if p != height * width:
         raise ValueError(f"x has {p} pixels per view, not {height}x{width}")
-    out = BottleneckFused.apply(x.reshape(v * p, c).to(BF16), height, width, eps,
+    out = BottleneckFused.apply(x.reshape(v * p, c).to(BF16), height, width, eps, group,
                                 *(params.get(k) for k in _PARAMS))
     y, stats = out[0], out[1:]
     keys = ("bn1", "bn2", "bn3", "bnp")

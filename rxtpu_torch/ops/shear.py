@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from rxtpu_torch.ops.crop_norm import normalize_params
-from rxtpu_torch.ops.warp import sample_affine_params, to_device
+from rxtpu_torch.ops.warp import sample_view_params, to_device
 
 _OUT_KINDS = {torch.bfloat16: 0, torch.float32: 2}
 _IN_KINDS = {torch.uint8: 0, torch.float32: 2}
@@ -482,11 +482,12 @@ def apply_affine_shear(images: torch.Tensor, mean: torch.Tensor, std: torch.Tens
 
 def augment_batch_shear(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                         generator: Optional[torch.Generator] = None, crop_size: int = 364,
-                        train: bool = True,
-                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Draw the per-view parameters from ``generator``, then apply them
-    through K2 -> K3 -> K4. Returns NCHW views [B, G, C, crop, crop]."""
+                        train: bool = True, out_dtype: torch.dtype = torch.bfloat16,
+                        rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Draw the per-view parameters from ``generator`` (``rows``: see
+    ``rxtpu_torch.ops.warp.sample_view_params``), then apply them through
+    K2 -> K3 -> K4. Returns NCHW views [B, G, C, crop, crop]."""
     b, g, _, h, _ = images.shape
-    params = sample_affine_params(generator, b * g, h, crop_size, train)
+    params = sample_view_params(generator, b, g, h, crop_size, train, rows)
     return apply_affine_shear(images, mean, std, *params, crop_size=crop_size,
                               out_dtype=out_dtype)

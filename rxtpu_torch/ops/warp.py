@@ -65,6 +65,18 @@ def sample_affine_params(generator: Optional[torch.Generator], n: int, src_size:
     return angle, vflip, hflip, crop
 
 
+def sample_view_params(generator: Optional[torch.Generator], b: int, g: int, src_size: int,
+                       crop_size: int, train: bool, rows: Optional[Tuple[int, int]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``sample_affine_params`` for ``b`` rows of ``g`` views: the draws of
+    rows [first, first + b) of a global batch of ``total`` rows, ``rows =
+    (first, total)`` (default ``(0, b)``: the whole batch), so a data rank's
+    slice draws what world 1 draws."""
+    first, total = rows or (0, b)
+    params = sample_affine_params(generator, total * g, src_size, crop_size, train)
+    return tuple(t[first * g:(first + b) * g] for t in params)
+
+
 def apply_affine_warp(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                       angle: torch.Tensor, vflip: torch.Tensor, hflip: torch.Tensor,
                       crop: torch.Tensor, crop_size: int = 364,
@@ -122,11 +134,13 @@ def apply_affine_warp(images: torch.Tensor, mean: torch.Tensor, std: torch.Tenso
 
 def augment_batch(images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                   generator: Optional[torch.Generator] = None, crop_size: int = 364,
-                  train: bool = True, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  train: bool = True, out_dtype: torch.dtype = torch.bfloat16,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Draw per-view parameters from ``generator`` (each (b, g) view its
-    own), then warp. Returns NCHW views [B, G, C, crop, crop]."""
+    own; ``rows``: see ``sample_view_params``), then warp. Returns NCHW
+    views [B, G, C, crop, crop]."""
     b, g, _, h, _ = images.shape
-    params = sample_affine_params(generator, b * g, h, crop_size, train)
+    params = sample_view_params(generator, b, g, h, crop_size, train, rows)
     return apply_affine_warp(images, mean, std, *params, crop_size=crop_size,
                              out_dtype=out_dtype)
 

@@ -32,7 +32,7 @@ import operator
 import os
 import pickle
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -188,21 +188,43 @@ def _to_cpu(tree: Any) -> Any:
 
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
-                    optimizer: Optional[torch.optim.Optimizer] = None, **meta) -> None:
+                    optimizer: Union[torch.optim.Optimizer, Dict, None] = None,
+                    **meta) -> None:
     """Atomic write of the port's own format: the model's ``state_dict``,
-    the optimizer's state when given, and plain ``meta`` values (``step``,
-    ``epoch``, ``batch_in_epoch``, ``best_metric``, ...)."""
+    the optimizer's state when given (the optimizer or its ``state_dict``),
+    and plain ``meta`` values (``step``, ``epoch``, ``batch_in_epoch``,
+    ``best_metric``, ...)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     payload = {"format": FORMAT, "state_dict": _to_cpu(dict(state_dict)), **meta}
     if optimizer is not None:
-        payload["optimizer"] = _to_cpu(optimizer.state_dict())
+        opt = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
+        payload["optimizer"] = _to_cpu(opt)
     torch.save(payload, tmp)
     os.replace(tmp, path)
 
 
 def checkpoint_exists(path: str) -> bool:
     return os.path.exists(path)
+
+
+def assert_consistent_checkpoint_view(*paths: str) -> None:
+    """Every rank must see the same checkpoint files: the phase-skip and
+    resume gates branch on ``checkpoint_exists``, and ranks that disagree
+    would take different paths and hang on mismatched collectives
+    (``rxtpu/train/checkpoint.py:124``). No-op outside a process group."""
+    from rxtpu_torch.parallel.multihost import all_gather_rows, comm_device, is_distributed
+
+    if not is_distributed():
+        return
+    local = torch.tensor([[int(checkpoint_exists(p)) for p in paths]], dtype=torch.int32,
+                         device=comm_device())
+    view = all_gather_rows(local).cpu()
+    if not bool((view == view[0]).all()):
+        raise RuntimeError(
+            "checkpoint visibility differs across ranks (per-path exists flags by rank: "
+            f"{view.tolist()}): the checkpoint directory must live on storage that every "
+            "rank shares")
 
 
 def is_port_format(path: str) -> bool:
@@ -238,15 +260,19 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 class BestCheckpointer:
     """Save-on-improvement tracker: ``update(metric, payload)`` saves
     ``payload`` (``save_checkpoint`` keywords) with ``best_metric`` when
-    ``metric`` beats the best seen; the first call always saves."""
+    ``metric`` beats the best seen; the first call always saves. With
+    ``write=False`` (a rank other than 0) it tracks the best and writes
+    nothing."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, write: bool = True):
         self.path = path
+        self.write = write
         self.best: Optional[float] = None
 
     def update(self, metric: float, payload: Dict[str, Any]) -> bool:
         if self.best is None or metric > self.best:
             self.best = float(metric)
-            save_checkpoint(self.path, **{**payload, "best_metric": self.best})
+            if self.write:
+                save_checkpoint(self.path, **{**payload, "best_metric": self.best})
             return True
         return False

@@ -15,6 +15,15 @@
   checkpoint stays as it is until a better one is written;
 - early stopping on val accuracy with patience, where a tie is not an
   improvement.
+
+On a mesh (``rxtpu_torch.parallel``; ``train_pipe`` and ``val_pipe`` the
+rank's slices) every rank steps, validates its rows and sums
+``correct·valid``, ``loss·valid`` and ``valid`` over the data ranks, so every
+rank takes the same decisions. Rank 0 alone writes ``metrics.jsonl`` and
+the checkpoints (the tensor-parallel shards gathered first, so the files
+have a world-1 run's layout), and the ranks meet at a barrier after each
+write, so that a resume finds the files. A resume loads the whole weights
+on every rank, then cuts its shards.
 """
 
 from __future__ import annotations
@@ -27,6 +36,10 @@ import torch
 
 from rxtpu_torch.config import Config
 from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
+from rxtpu_torch.parallel.dp import (
+    place_state, whole_model, whole_optimizer_state, whole_state_dict,
+)
+from rxtpu_torch.parallel.multihost import barrier
 from rxtpu_torch.train.checkpoint import (
     BestCheckpointer, checkpoint_exists, load_train_state, save_checkpoint,
 )
@@ -47,10 +60,21 @@ class TrainResult:
     history: list
 
 
+class _NoLogger:
+    """A rank other than 0 logs nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def evaluate(state: TrainState, pipe: Pipeline, device: torch.device, crop_size: int,
-             dtype: torch.dtype) -> Dict[str, float]:
-    """Exact loss / accuracy over a validation pipeline."""
-    step = EvalStep(state.model, crop_size, dtype)
+             dtype: torch.dtype, mesh=None) -> Dict[str, float]:
+    """Exact loss / accuracy over a validation pipeline (on a mesh, over every
+    data rank's slice; a tensor-parallel head evaluates whole)."""
+    step = EvalStep(whole_model(state.model, mesh), crop_size, dtype)
     loss_sum, correct, count = 0.0, 0.0, 0.0
     batches = ({k: v for k, v in b.items() if k != "id_codes"} for b in pipe.epoch(0))
     for batch in device_prefetch(batches, device):
@@ -58,6 +82,10 @@ def evaluate(state: TrainState, pipe: Pipeline, device: torch.device, crop_size:
         loss_sum += float(m["loss_sum"])
         correct += float(m["correct"])
         count += float(m["count"])
+    if mesh is not None:
+        sums = torch.tensor([loss_sum, correct, count], dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(sums, group=mesh.data_group)
+        loss_sum, correct, count = sums.tolist()
     count = max(count, 1.0)
     return {"loss": loss_sum / count, "accuracy": correct / count}
 
@@ -65,25 +93,27 @@ def evaluate(state: TrainState, pipe: Pipeline, device: torch.device, crop_size:
 def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe: Pipeline,
                  device: torch.device, seed: Optional[int] = None,
                  logger: Optional[MetricLogger] = None, print_fn: Callable = print,
-                 resume: bool = False) -> TrainResult:
+                 resume: bool = False, mesh=None) -> TrainResult:
     """Run the epoch loop on ``device``; returns the final state and the best
     val accuracy. ``seed`` (default ``cfg.train.seed``) keys every step's
-    draws."""
+    draws. ``state`` holds whole weights; on a ``mesh`` they are cut to the
+    rank's shards here, after a resume has loaded."""
     if cfg.train.early_stopping and cfg.train.patience < 1:
         raise ValueError("early stopping requires patience >= 1")
     seed = cfg.train.seed if seed is None else seed
     crop = cfg.data.crop_size
     dtype = getattr(torch, cfg.model.compute_dtype)
     train_step = make_train_step(state.model, crop, augment=cfg.train.augment_backend,
-                                 compute_dtype=dtype)
-    ckpt = BestCheckpointer(cfg.checkpoint_path)
+                                 compute_dtype=dtype, mesh=mesh)
+    writer = mesh is None or mesh.rank == 0
+    ckpt = BestCheckpointer(cfg.checkpoint_path, write=writer)
     timer = StepTimer()
     history = []
     start_epoch, start_batch = 1, 0
     epochs_without_improvement = 0
     own_logger = logger is None
     if own_logger:
-        logger = MetricLogger(cfg.train.board_dir, cfg.experiment_id)
+        logger = MetricLogger(cfg.train.board_dir, cfg.experiment_id) if writer else _NoLogger()
 
     last_path = last_checkpoint_path(cfg)
     if resume and checkpoint_exists(last_path):
@@ -106,14 +136,23 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
         else:
             start_epoch = int(saved["epoch"]) + 1
             print_fn(f"Resumed from epoch {saved['epoch']} (step {state.step})")
+    place_state(state, mesh)
 
     def payload(**meta) -> Dict:
-        return {"state_dict": state.model.state_dict(), "optimizer": state.optimizer,
+        return {"state_dict": whole_state_dict(state.model, mesh),
+                "optimizer": whole_optimizer_state(state.optimizer, state.model, mesh),
                 "step": state.step, **meta}
 
+    def save_last(**meta) -> None:
+        p = payload(**meta)
+        if writer:
+            save_checkpoint(last_path, **p)
+        barrier()
+
     def validate(epoch: int) -> Dict[str, float]:
-        val_m = evaluate(state, val_pipe, device, crop, dtype)
+        val_m = evaluate(state, val_pipe, device, crop, dtype, mesh)
         improved = ckpt.update(val_m["accuracy"], payload())
+        barrier()
         if improved:
             print_fn(f"New best accuracy! Accuracy: {val_m['accuracy']}\nModel saved!")
         print_fn(f"Validation Results - Epoch: {epoch} Average Loss: {val_m['loss']:.4f} "
@@ -159,9 +198,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
                                prefix="training")
                 every = cfg.train.checkpoint_every_steps
                 if every and state.step % every == 0 and batch_i < len(train_pipe):
-                    save_checkpoint(last_path, **payload(
-                        epoch=epoch, batch_in_epoch=batch_i, best_metric=ckpt.best,
-                        epochs_without_improvement=epochs_without_improvement))
+                    save_last(epoch=epoch, batch_in_epoch=batch_i, best_metric=ckpt.best,
+                              epochs_without_improvement=epochs_without_improvement)
             logger.log(state.step, timer.summary(), prefix="perf")
 
             val_m = validate(epoch)
@@ -169,9 +207,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
                             "accuracy": val_m["accuracy"], **timer.summary()})
             epochs_run = epoch
             epochs_without_improvement = 0 if val_m["improved"] else epochs_without_improvement + 1
-            save_checkpoint(last_path, **payload(
-                epoch=epoch, best_metric=ckpt.best,
-                epochs_without_improvement=epochs_without_improvement))
+            save_last(epoch=epoch, best_metric=ckpt.best,
+                      epochs_without_improvement=epochs_without_improvement)
             if cfg.train.early_stopping and epochs_without_improvement >= cfg.train.patience:
                 print_fn(f"EarlyStopping: stop after {epoch} epochs")
                 break

@@ -13,13 +13,16 @@ from rxtpu_torch.train.optim import make_schedule
 from rxtpu_torch.train.step import TrainState
 
 
-def build_model(cfg: Config) -> TwoSitesNN:
+def build_model(cfg: Config, mesh=None) -> TwoSitesNN:
+    """The configured ``TwoSitesNN``; with ``mesh`` (``rxtpu_torch.parallel``)
+    its BNs sync over the data ranks and its head splits over the model ranks."""
     return TwoSitesNN(
         backbone=cfg.model.backbone, nb_classes=cfg.model.nb_classes,
         size_features=cfg.model.size_features, dropout=cfg.model.dropout,
         head=cfg.model.head, control_calibration=cfg.model.control_calibration,
         arcface_margin=cfg.model.arcface_margin, arcface_scale=cfg.model.arcface_scale,
         fuse_blocks=bool(cfg.model.fuse_blocks),  # None (auto) is off, as in rxtpu
+        mesh=mesh,
     )
 
 
@@ -30,7 +33,10 @@ def create_train_state(cfg: Config, model: TwoSitesNN, steps_per_epoch: int,
     """Initialize the weights (from ``cfg.train.seed`` unless a generator is
     given), port the pretrained backbone when ``cfg.model.pretrained_path``
     is set, move the model to ``device`` and build the optimizer. Returns
-    (state, lr) with lr = 0.0005 x global batch unless given."""
+    (state, lr) with lr = 0.0005 x global batch unless given; the global
+    batch is ``bs_per_device`` x ``n_devices`` (the world size on a mesh,
+    rxtpu's device count). Every rank builds the whole model: a mesh's
+    tensor-parallel shards are cut later (``rxtpu_torch.parallel.place_state``)."""
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
     init_weights(model, generator)

@@ -10,6 +10,14 @@ no gradient: it acts on the input before the model. Metrics: ``loss``,
 ``accuracy``, ``grad_norm``, ``grad_norm/{backbone,head}`` (of the raw
 gradients) and the ``lr`` this step used, as 0-dim tensors on the device.
 
+On a mesh (``rxtpu_torch.parallel``) the batch is the rank's slice of the
+global batch: the augment and dropout draws are the global batch's, of
+which the rank takes its rows; the gradients are averaged over the data
+ranks right after the backward (before the norms, weight decay and
+nesterov); the loss and accuracy are averaged over them; the norms count
+each replicated tensor once and sum the tensor-parallel shards over the
+model ranks. So world N computes world 1's step on the same global batch.
+
 The eval step: K1 center crop + normalize (``eval_batch_normalize``, bf16
 views), the BN-folded twin in the compute dtype (a model that does not fold
 evaluates unfolded, on its running statistics), then exact sums
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 
 from rxtpu_torch.infer.fold import fold
 from rxtpu_torch.ops import get_augment_fn
+from rxtpu_torch.parallel.dp import allreduce_grads, tp_named_parameters
 from rxtpu_torch.train.optim import head_only_mask, make_optimizer, masked_grads_with_wd
 
 Batch = Dict[str, torch.Tensor]
@@ -78,13 +87,14 @@ def _norm(sq: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shear",
-                    compute_dtype: torch.dtype = torch.bfloat16) -> Callable:
+                    compute_dtype: torch.dtype = torch.bfloat16, mesh=None) -> Callable:
     """``step(state, batch, seed, backbone_trainable) -> metrics``; updates
     ``state`` in place. batch: images uint8 [B, G, C, H, W], labels int
     [B], mean/std f32 [B, C], all on one device (for ``augment="none"``,
-    images are normalized NCHW views)."""
+    images are normalized NCHW views); on a ``mesh``, the rank's rows."""
     augment_fn = get_augment_fn(augment)
     autocast = compute_dtype != torch.float32
+    tp_ids = {id(p) for _, p in tp_named_parameters(model, mesh)}
 
     def step_fn(state: TrainState, batch: Batch, seed: int,
                 backbone_trainable: bool) -> Dict[str, torch.Tensor]:
@@ -92,11 +102,13 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
         images = batch["images"]
         device = images.device
         aug_gen, drop_gen = step_generators(seed, state.step, device)
+        b = images.shape[0]
+        rows = (0, b) if mesh is None else mesh.batch_rows(b)
         views = augment_fn(images, batch["mean"], batch["std"], aug_gen,
-                           crop_size=crop_size, train=True)
+                           crop_size=crop_size, train=True, rows=rows)
         labels = batch["labels"].long()
         model.train()
-        model.set_dropout_generator(drop_gen)
+        model.set_dropout_generator(drop_gen, rows)
         state.optimizer.zero_grad(set_to_none=True)
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             logits = model(views, labels=labels)
@@ -106,8 +118,16 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
         model.set_dropout_generator(None)
 
         params = list(model.parameters())
+        if mesh is not None:
+            allreduce_grads(params, mesh.data_group)
         with torch.no_grad():
             sq = [n.square() for n in torch._foreach_norm([p.grad.float() for p in params])]
+            tp = [i for i, p in enumerate(params) if id(p) in tp_ids]
+            if tp:  # a shard's square sum -> the whole weight's
+                whole = torch.stack([sq[i] for i in tp])
+                torch.distributed.all_reduce(whole, group=mesh.model_group)
+                for i, v in zip(tp, whole.unbind()):
+                    sq[i] = v
             metrics = {
                 "loss": loss.detach(),
                 "accuracy": (logits.argmax(-1) == labels).float().mean(),
@@ -115,6 +135,10 @@ def make_train_step(model: torch.nn.Module, crop_size: int, augment: str = "shea
                 "grad_norm/backbone": _norm([s for s, h in zip(sq, state.head_mask) if not h]),
                 "grad_norm/head": _norm([s for s, h in zip(sq, state.head_mask) if h]),
             }
+            if mesh is not None and mesh.data_size > 1:  # their mean over the data ranks
+                both = torch.stack([metrics["loss"], metrics["accuracy"]])
+                torch.distributed.all_reduce(both, group=mesh.data_group)
+                metrics["loss"], metrics["accuracy"] = (both / mesh.data_size).unbind()
         masked_grads_with_wd(params, [backbone_trainable or h for h in state.head_mask],
                              state.weight_decay)
         lr = state.lr_schedule(state.step)

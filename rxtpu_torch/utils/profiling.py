@@ -20,9 +20,10 @@ from rxtpu_torch.train.metrics import StepTimer
 
 
 @contextlib.contextmanager
-def trace(logdir: str, enabled: bool = True):
+def trace(logdir: str, enabled: bool = True, worker_name: Optional[str] = None):
     """Profile the region into ``logdir``; yields the ``torch.profiler.profile``
-    (None when not enabled)."""
+    (None when not enabled). ``worker_name`` starts the trace file's name
+    (default: host and process id), so each rank of a run names its own."""
     if not enabled:
         yield None
         return
@@ -31,7 +32,8 @@ def trace(logdir: str, enabled: bool = True):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir, worker_name)) as prof:
         yield prof
 
 

@@ -308,7 +308,10 @@ def test_cli_refuses_png_without_pack():
     for argv in (["--image-ext", "png"], ["--image-ext", "png", "--pack", "packs"], []):
         assert port_cli._not_ported(parse(argv + ["--device", "cpu"])) is None
     assert port_cli._not_ported(parse(["--profile", "--image-ext", "png"])) is None
-    assert "--distributed" in port_cli._not_ported(parse(["--distributed", "--image-ext", "png"]))
+    # multi-GPU is ported: only --checkpoint-backend orbax is refused
+    assert port_cli._not_ported(parse(["--distributed", "--image-ext", "png"])) is None
+    assert port_cli._not_ported(parse(["--distributed", "--model-parallel", "2"])) is None
+    assert "orbax" in port_cli._not_ported(parse(["--checkpoint-backend", "orbax"]))
 
 
 def test_nvjpeg_reference_is_rxtpu_decode():

@@ -365,8 +365,9 @@ def test_quant_guards(tmp_path, monkeypatch):
         calibrate(model, [])
     with pytest.raises(ValueError, match="average"):
         QuantPredictor(model, average="mean")
-    # the CLI: --calib-batches below 1, --distributed (not ported yet), and the
-    # ArcFace head, which int8 does not support (rxtpu/cli.py:479-484)
+    # the CLI: --calib-batches below 1 and the ArcFace head, which int8 does
+    # not support (rxtpu/cli.py:479-484); --distributed with no cluster runs
+    # at world 1 and writes the plain run's submission
     from rxtpu_torch.data.synthetic import make_test_fixture, randomize_
     from rxtpu_torch.train.checkpoint import save_checkpoint
 
@@ -379,8 +380,6 @@ def test_quant_guards(tmp_path, monkeypatch):
             "--batch-size", "2", "--device", "cpu", "--quantize", "int8"]
     with pytest.raises(SystemExit, match="--calib-batches must be >= 1"):
         port_cli.main(argv + ["--calib-batches", "0"])
-    with pytest.raises(SystemExit, match="not ported"):
-        port_cli.main(argv + ["--distributed"])
     with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
                                          "densenet121, got resnet18/arcface"):
         port_cli.main(argv + ["--head", "arcface"])
@@ -390,6 +389,12 @@ def test_quant_guards(tmp_path, monkeypatch):
                                  "--profile"]) == 0
     assert (tmp_path / "submission_g.csv").exists()
     assert not (tmp_path / "board" / "g" / "profile").exists()
+    (tmp_path / "dist").mkdir()
+    assert port_cli.main(argv + ["--calib-batches", "5", "--assign-method", "greedy_jax",
+                                 "--distributed", "--out-dir", str(tmp_path / "dist")]) == 0
+    assert (tmp_path / "dist" / "submission_g.csv").read_bytes() == \
+        (tmp_path / "submission_g.csv").read_bytes()
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------

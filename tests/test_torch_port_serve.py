@@ -218,7 +218,9 @@ for m in mods:
 assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode", "rxtpu_torch.ops.int8_conv",
         "rxtpu_torch.models.quant", "rxtpu_torch.infer.quant",
         "rxtpu_torch.models.densenet", "rxtpu_torch.models.heads",
-        "rxtpu_torch.utils", "rxtpu_torch.utils.profiling"} <= set(mods), mods
+        "rxtpu_torch.utils", "rxtpu_torch.utils.profiling", "rxtpu_torch.parallel",
+        "rxtpu_torch.parallel.mesh", "rxtpu_torch.parallel.dp",
+        "rxtpu_torch.parallel.multihost"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
@@ -388,7 +390,8 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     assert all(g.sirna.is_unique for _, g in sub8.groupby(plates))
     # --assign-method greedy_jax on the run's device: the same plate-leak
     # assignment as greedy here; --profile traces training only, and the
-    # best checkpoint skips it; --distributed is not ported
+    # best checkpoint skips it; --distributed with no cluster runs at world 1
+    # (rxtpu's warning) and writes the same submission
     os.makedirs("gj")
     assert port_cli.main(argv + ["--assign-method", "greedy_jax", "--profile",
                                  "--out-dir", "gj"]) == 0
@@ -396,8 +399,12 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     assert list(sub_gj.id_code) == list(sub.id_code)
     assert list(sub_gj.sirna) == list(sub.sirna)
     assert not os.path.exists("board/fx/profile")
-    with pytest.raises(SystemExit, match="not ported"):
-        port_cli.main(argv + ["--distributed"])
+    os.makedirs("dist")
+    assert port_cli.main(argv + ["--distributed", "--out-dir", "dist"]) == 0
+    assert "continuing single-process" in capsys.readouterr().err
+    with open("dist/submission_fx.csv", "rb") as a, open("submission_fx.csv", "rb") as b:
+        assert a.read() == b.read()
+    assert not torch.distributed.is_initialized()
     with pytest.raises(SystemExit, match="supports resnet backbones with the mlp head and "
                                          "densenet121, got resnet18/arcface"):
         port_cli.main(argv + ["--quantize", "int8", "--head", "arcface"])
