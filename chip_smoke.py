@@ -101,8 +101,10 @@ Phases, each ending the run with a non-zero exit when it fails:
    all-reduce, by CUDA events, alternated;
 4. the test phase end to end (plate-leak assignment) on the checkpoint
    phase 3 trained, then again with ``--predict-scan-window 2`` (rxtpu's
-   scanned predict window; the port predicts one batch per step whatever
-   the window): the same submission, byte for byte;
+   scanned predict window: one CUDA graph replay per window of 2 batches):
+   the same submission, byte for byte, K1 once per test batch; and the
+   experiment drained by ``predict_dataset`` per batch and in windows of 2:
+   the probabilities bit-equal;
 4b. the K5 path at full width on phase 3's last checkpoint: K5 against its
    plain version on the folded stem (bf16 within one ulp, f32 within 1e-5
    of max|out|, and the f32 gaps against the bound the exact path assumes);
@@ -153,6 +155,20 @@ Phases, each ending the run with a non-zero exit when it fails:
    0.75 (rxtpu's bar) on the seeded weights, and the agreement and largest
    probability gap with the BN statistics fitted to the batch, reported
    beside 4f's; once without transforms;
+4h. windows of 4 predict batches as one CUDA graph replay each
+   (``WindowStep``): (b) phase 4's experiment as 4 batches of 8 (G=6,
+   512^2), for ResNet-50 bf16 (phase 3's last checkpoint), its int8 without
+   transforms (K1's int8 views, K8), DenseNet-121 bf16 (unfolded, under
+   autocast) and int8 with ``[identity]`` (4g's model), DenseNet-121 +
+   ArcFace under ``--tta flips`` (3c's checkpoint) and the fused stem (K5):
+   the window bit-equal to the per-batch step on each batch, two replays
+   bit-equal, a tail window of 3 batches and 1 pad giving the 3 real slices
+   unchanged, and a replay's launch counts those of the 4 per-batch calls;
+   (c) ms per batch at window 1 and 4, alternated (1, 4, 4, 1), by CUDA
+   events and host clock, and each mode's peak memory, for the ResNet-50
+   and DenseNet-121 bf16 and int8 steps at B=16; (d) ``entry()``'s forward
+   on the card (finite [2, 1108], bit-equal over two calls) and
+   ``dryrun_multichip(2)`` in a subprocess;
 5. the card against the CPU: f32 predict logits on one full-width batch
    (ResNet-50 folded, and DenseNet-121 unfolded), and
    one f32 train step (loss, updated parameters and BN statistics, momentum
@@ -210,6 +226,9 @@ DenseNet checks of phase 2, 3c, 4g and DenseNet's timings of phase 7.
 one epoch, phase 4's test phase, phase 3d and greedy_jax's timing.
 ``python3 chip_smoke.py --distributed`` builds the kernels and runs phase
 3e on phase 3's fixture.
+``python3 chip_smoke.py --scan`` builds the kernels and runs only phase 4h,
+on seeded weights (ResNet-50 randomized, DenseNet-121's BN statistics
+fitted to a batch, its ArcFace model initialized).
 ``python3 chip_smoke.py --step-timing`` builds the kernels and times only
 the bf16 train step, unfused and with the fused blocks, alternated: run from
 the roots of two checkouts in one call, it holds their steps against each
@@ -3444,6 +3463,239 @@ def dist_phase(dev, argv, out_dir, card):
 
 
 
+# ---------------------------------------------------------------------------
+# --predict-scan-window: one CUDA graph replay per window of K batches
+# (phase 4h)
+# ---------------------------------------------------------------------------
+SCAN_K, SCAN_B = 4, 8  # 4h's windows: phase 4's 32 test wells in 4 batches of 8
+
+
+def counts():
+    """Every kernel wrapper's launch count, in ``launch_counters()`` order."""
+    from rxtpu_torch.ops import launch_counters
+
+    return [c.launches for c in launch_counters()]
+
+
+def count_delta(before):
+    """{wrapper name: launches since ``before``} for the wrappers that moved."""
+    from rxtpu_torch.ops import launch_counters
+
+    return {c.__name__: n - b for c, n, b in zip(launch_counters(), counts(), before) if n != b}
+
+
+def scan_window_probs(dev, fx, ckpt, n_batches):
+    """Phase 4 (a): the test experiment drained by ``predict_dataset`` with the
+    bf16 ``Predictor`` on the checkpoint, per batch and in windows of 2 (one
+    graph replay each): the probabilities and ids bit-equal, and K1 counted
+    once per test batch in the windowed drain."""
+    import numpy as np
+    import torch
+    from rxtpu_torch.data.pack import PackStore
+    from rxtpu_torch.data.pipeline import Pipeline
+    from rxtpu_torch.data.records import load_metadata, read_metadata_csvs
+    from rxtpu_torch.data.stats import load_stats
+    from rxtpu_torch.infer.predict import Predictor, predict_dataset
+    from rxtpu_torch.models.twosites import TwoSitesNN
+    from rxtpu_torch.ops.crop_norm import crop_normalize
+    from rxtpu_torch.train.checkpoint import load_checkpoint
+
+    model = TwoSitesNN("resnet50", nb_classes=1108)
+    model.load_state_dict(load_checkpoint(ckpt))
+    step = Predictor(model.to(dev).eval(), None, dtype=torch.bfloat16)
+    rows, ctrl = read_metadata_csvs(os.path.join(fx["data_dir"], "metadata"), "test")
+    pipe = Pipeline(load_metadata(rows, ctrl, "test"), PackStore(fx["pack"]),
+                    load_stats(fx["stats"]), B)
+    want, want_ids = predict_dataset(step, pipe, dev)
+    crop_normalize.launches = 0
+    got, got_ids = predict_dataset(step, pipe, dev, scan_window=2)
+    torch.cuda.synchronize()
+    print(f"predict_dataset over the experiment in windows of 2: probabilities {got.shape} "
+          f"bit-equal to the per-batch drain {np.array_equal(got, want)}, ids equal "
+          f"{got_ids == want_ids}; crop_norm launches {crop_normalize.launches} for "
+          f"{n_batches} batches")
+    if not np.array_equal(got, want) or got_ids != want_ids or \
+            crop_normalize.launches != n_batches:
+        fail("the windowed drain differs from the per-batch one, or K1 ran otherwise")
+
+
+def scan_fixture_windows(dev, fx):
+    """Phase 4's test experiment as 4 batches of 8 (G=6, 512^2) on the card:
+    the window of 4 and a tail window of its first 3 and the 3rd again."""
+    from rxtpu_torch.data.pack import PackStore
+    from rxtpu_torch.data.pipeline import Pipeline, stack_window
+    from rxtpu_torch.data.records import load_metadata, read_metadata_csvs
+    from rxtpu_torch.data.stats import load_stats
+
+    rows, ctrl = read_metadata_csvs(os.path.join(fx["data_dir"], "metadata"), "test")
+    pipe = Pipeline(load_metadata(rows, ctrl, "test"), PackStore(fx["pack"]),
+                    load_stats(fx["stats"]), SCAN_B)
+    host = [{k: b[k] for k in ("images", "mean", "std")} for b in pipe.epoch(0)]
+    if len(host) != SCAN_K:
+        fail(f"phase 4's experiment gave {len(host)} batches of {SCAN_B}, not {SCAN_K}")
+    return stack_window(host, dev), stack_window(host[:3] + [host[2]], dev)
+
+
+def scan_phase(dev, fx, steps, timed, card):
+    """Phase 4h (b)-(d). (b) each of ``steps`` ((label, per-batch step)) over
+    phase 4's experiment in a window of 4 batches, one graph replay: bit-equal
+    to the per-batch step on each batch, two replays bit-equal, the tail
+    window's 3 real slices bit-equal, and the launch counts of a replay K
+    times the per-batch step's. (c) ``timed`` ((label, step, batch)): ms per
+    batch at window 1 and 4, alternated, by events and host clock, and each
+    mode's peak memory. (d) ``entry()``'s forward on the card and
+    ``dryrun_multichip(2)`` in a subprocess."""
+    import torch
+    from rxtpu_torch.train.step import make_scanned_predict_step
+
+    window, tail = scan_fixture_windows(dev, fx)
+    batches = [{k: v[i] for k, v in window.items()} for i in range(SCAN_K)]
+    for label, step in steps:
+        before = counts()
+        per = torch.stack([step(b) for b in batches])
+        torch.cuda.synchronize()
+        per_window = count_delta(before)  # the K per-batch calls'
+        scan = make_scanned_predict_step(step, SCAN_K)
+        t0 = time.perf_counter()
+        first = scan(window).clone()  # warm-up, capture, then the first replay
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        before = counts()
+        second = scan(window).clone()
+        torch.cuda.synchronize()
+        replay = count_delta(before)
+        end = scan(tail).clone()
+        torch.cuda.synchronize()
+        bad = int((first != per).sum())
+        print(f"{label}: window of {SCAN_K} x [{SCAN_B},6,6,{SRC}^2] (first call, warm-up and "
+              f"capture included, {t_first:.2f} s): mismatches against the per-batch step "
+              f"{bad} of {per.numel()}, two replays equal {torch.equal(first, second)}, tail "
+              f"(3 + 1 pad) equal {torch.equal(end[:3], per[:3])}; launches per replay "
+              f"{replay}, of {SCAN_K} per-batch calls {per_window}")
+        if bad or not torch.equal(first, second) or not torch.equal(end[:3], per[:3]):
+            fail(f"{label}: the graph replay differs from the per-batch step")
+        if replay != per_window or not bool(torch.isfinite(per).all()):
+            fail(f"{label}: a replay launched {replay}, the {SCAN_K} per-batch calls "
+                 f"{per_window}")
+        del scan, first, second, end, per
+        torch.cuda.empty_cache()
+    del window, tail, batches
+
+    for label, step, batch in timed:
+        # peak memory of each mode alone, above what is allocated before it (the
+        # models, the batch): one batch; the window from its capture on
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch)
+        torch.cuda.synchronize()
+        peak = {1: torch.cuda.max_memory_allocated() - base}
+        torch.cuda.reset_peak_memory_stats()
+        win = {k: torch.stack([v] * SCAN_K) for k, v in batch.items()}
+        scan = make_scanned_predict_step(step, SCAN_K)
+        scan(win)
+        torch.cuda.synchronize()
+        peak[SCAN_K] = torch.cuda.max_memory_allocated() - base
+        singles = [batch] * SCAN_K
+        runs = {1: [], SCAN_K: []}
+
+        def window_1():
+            for b in singles:
+                step(b)
+
+        def window_k():
+            scan(win)
+
+        for k in (1, SCAN_K, SCAN_K, 1):  # alternated
+            fn = window_1 if k == 1 else window_k
+            ev = cuda_ms(fn, 5, warmup=1) / SCAN_K
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            runs[k].append((ev, (time.perf_counter() - t0) * 1e3 / (5 * SCAN_K)))
+        fmt = lambda rs: " / ".join(f"{e:.3f}" for e, _ in rs) + " by events, " + \
+            " / ".join(f"{h:.3f}" for _, h in rs) + " host clock"
+        print(f"4h (c) {label} B={B} G=6 {SRC}^2, ms per batch: window 1 {fmt(runs[1])}; "
+              f"window {SCAN_K} {fmt(runs[SCAN_K])}; peak memory above the "
+              f"{base / 2**30:.3f} GiB held before: window 1 {peak[1] / 2**30:.3f} GiB, "
+              f"window {SCAN_K} {peak[SCAN_K] / 2**30:.3f} GiB (its input window, static "
+              f"copy, warm-up and graph pool) [{card}]")
+        del scan, win
+        torch.cuda.empty_cache()
+
+    from rxtpu_torch.entry import entry
+
+    fn, (x,) = entry()
+    a, b = fn(x), fn(x)
+    torch.cuda.synchronize()
+    print(f"4h (d) entry(): {tuple(a.shape)} {a.dtype} on {a.device}, finite "
+          f"{bool(torch.isfinite(a).all())}, two calls bit-equal {torch.equal(a, b)}")
+    if tuple(a.shape) != (2, 1108) or not bool(torch.isfinite(a).all()) or not torch.equal(a, b):
+        fail("entry()'s forward on the card is not a finite [2, 1108] repeated bit for bit")
+    del fn, x, a, b
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", "from rxtpu_torch.entry import "
+                          "dryrun_multichip; dryrun_multichip(2)"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    print(f"4h (d) dryrun_multichip(2) in a subprocess: rc {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {run.stdout.strip().splitlines()[-1:]}")
+    if run.returncode != 0:
+        print(run.stderr[-4000:])
+        fail("dryrun_multichip(2) failed")
+
+
+def seeded_scan_steps(dev):
+    """``--scan``'s steps on seeded weights (no training): ResNet-50 bf16, its
+    int8 (calibrated on a full-width batch) without and with transforms,
+    DenseNet-121 + MLP with BN statistics fitted to a batch, bf16 and int8,
+    DenseNet-121 + ArcFace with calibration under ``--tta flips``, and the
+    fused stem. Returns (4h (b)'s steps, 4h (c)'s timed steps)."""
+    import torch
+    from rxtpu_torch.data.synthetic import randomize_
+    from rxtpu_torch.infer.predict import Predictor, tta_transforms
+    from rxtpu_torch.infer.quant import QuantPredictor, calibrate, prepare_quantized
+    from rxtpu_torch.models.resnet import init_weights
+    from rxtpu_torch.models.twosites import TwoSitesNN
+
+    batch = int8_batch(dev, 11)
+    net = randomize_(TwoSitesNN("resnet50", nb_classes=1108), seed=0).to(dev).eval()
+    qnet = prepare_quantized(net, calibrate(net, [batch], None, torch.bfloat16))
+    dn = fit_bn_statistics(init_weights(TwoSitesNN("densenet121", nb_classes=1108),
+                                        torch.Generator().manual_seed(0)).to(dev), batch)
+    dnq = prepare_quantized(dn, calibrate(dn, [batch], None, torch.bfloat16))
+    arc = init_weights(TwoSitesNN("densenet121", nb_classes=1108, head="arcface",
+                                  control_calibration=True),
+                       torch.Generator().manual_seed(1)).to(dev).eval()
+    bf16 = Predictor(net, None, dtype=torch.bfloat16)
+    int8 = QuantPredictor(qnet, None, tta_transforms("none"))
+    dn_bf16 = Predictor(dn, None, dtype=torch.bfloat16)
+    dn_int8 = QuantPredictor(dnq, None, tta_transforms("none"))
+    steps = scan_steps(bf16, QuantPredictor(qnet, None, None), dn_bf16, dn_int8,
+                       Predictor(arc, None, "flips", dtype=torch.bfloat16),
+                       Predictor(net, None, dtype=torch.bfloat16, fused_stem=True))
+    return steps, scan_timed(bf16, int8, dn_bf16, dn_int8, batch)
+
+
+def scan_steps(bf16, int8_src, dn_bf16, dn_int8, arcface, fused):
+    """4h (b)'s (label, step) pairs."""
+    return [("ResNet-50 bf16 (K1)", bf16),
+            ("ResNet-50 int8, no transforms (K1 int8 views, K8)", int8_src),
+            ("DenseNet-121 bf16, unfolded under autocast (K1)", dn_bf16),
+            ("DenseNet-121 int8, [identity] (K1 bf16 views, K8's stem quantizes)", dn_int8),
+            ("DenseNet-121 + ArcFace, --tta flips (K1)", arcface),
+            ("ResNet-50 fused_stem=True (K5)", fused)]
+
+
+def scan_timed(bf16, int8, dn_bf16, dn_int8, batch):
+    """4h (c)'s (label, step, batch) triples."""
+    return [("ResNet-50 bf16 predict", bf16, batch),
+            ("ResNet-50 int8 predict ([identity], the CLI's)", int8, batch),
+            ("DenseNet-121 bf16 predict", dn_bf16, batch),
+            ("DenseNet-121 int8 predict ([identity], the CLI's)", dn_int8, batch)]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3557,6 +3809,18 @@ def main() -> int:
               "the world-2 f32 step over gloo on the one card, plain, with "
               "--model-parallel 2 and fused; the gradient all-reduce's cost at world 1")
         dist_phase(dev, argv, train_dir, card)
+        shutil.rmtree(WORK, ignore_errors=True)
+        print(card)
+        return 0
+    if "--scan" in sys.argv[1:]:  # only phase 4h, on seeded weights
+        from rxtpu_torch.data.synthetic import make_test_fixture
+
+        shutil.rmtree(WORK, ignore_errors=True)
+        fx = make_test_fixture(os.path.join(WORK, "test"), nb_classes=1108, n_test_wells=32,
+                               img_size=SRC, seed=0)
+        phase(f"4h windows of {SCAN_K} predict batches as one CUDA graph replay each, seeded "
+              "weights; window 1 against 4; entry() and dryrun_multichip(2)")
+        scan_phase(dev, fx, *seeded_scan_steps(dev), card)
         shutil.rmtree(WORK, ignore_errors=True)
         print(card)
         return 0
@@ -3844,14 +4108,17 @@ def main() -> int:
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
-    print(f"--predict-scan-window 2: cli rc {rc} in {time.perf_counter() - t0:.2f} s; "
-          f"crop_norm launches {crop_normalize.launches} for {n_batches} batches")
+    print(f"--predict-scan-window 2 (one CUDA graph replay per window): cli rc {rc} in "
+          f"{time.perf_counter() - t0:.2f} s; crop_norm launches {crop_normalize.launches} for "
+          f"{n_batches} batches")
     if rc != 0 or crop_normalize.launches != n_batches:
         fail(f"--predict-scan-window 2 run failed or launched K1 {crop_normalize.launches} times")
     with open(os.path.join(out_dir, "submission_smoke.csv"), "rb") as f:
         if f.read() != sub_bytes:
             fail("--predict-scan-window 2 wrote another submission")
     print("scan-window submission: byte-equal to window 1")
+    scan_window_probs(dev, fx, os.path.join(test_dir, "models", "best_model_smoke.ckpt"),
+                      n_batches)
 
     # ---- 3d. --resume from rxtpu's layout, --profile, greedy_jax ----------------
     phase("3d --resume from an rxtpu-layout pickle (epoch end; mid-epoch under --profile "
@@ -4030,6 +4297,23 @@ def main() -> int:
           f"{dn_seeded[0]:.4g} ({dn_seeded[1]:.4f}), with fitted BN statistics {dn_fitted[0]:.4g} "
           f"({dn_fitted[1]:.4f}); ResNet-50 in 4f {int8_steps[3]:.4g} ({int8_steps[4]:.4f}, "
           f"trained 8 steps)")
+
+    # ---- 4h. --predict-scan-window: one CUDA graph replay per window -----------
+    phase(f"4h windows of {SCAN_K} predict batches as one CUDA graph replay each, against the "
+          "per-batch steps (ResNet-50 bf16 and int8, DenseNet-121 bf16 and int8, ArcFace, "
+          "the fused stem); window 1 against 4; entry() and dryrun_multichip(2)")
+    from rxtpu_torch.infer.predict import Predictor as _Predictor
+    from rxtpu_torch.train.checkpoint import load_checkpoint as _load_checkpoint
+
+    arc = TwoSitesNN("densenet121", nb_classes=1108, head="arcface", control_calibration=True)
+    arc.load_state_dict(_load_checkpoint(os.path.join(WORK, "densenet_arcface", "models",
+                                                      "best_model_dnarc.ckpt")))
+    arc_step = _Predictor(arc.to(dev).eval(), None, "flips", dtype=torch.bfloat16)
+    scan_phase(dev, fx, scan_steps(preds[False], int8_steps[1], dn_steps[2], dn_steps[0],
+                                   arc_step, preds[True]),
+               scan_timed(preds[False], int8_steps[0], dn_steps[2], dn_steps[0], test_batch),
+               card)
+    del arc, arc_step
 
     # ---- 5. the card against the CPU ------------------------------------------
     phase("5 card against CPU: f32 predict logits; f32 train step against f64")

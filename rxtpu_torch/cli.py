@@ -33,7 +33,10 @@ line works for both:
    DenseNet-121 with the MLP head), calibrated once on the first
    experiment's opening ``--calib-batches`` batches; mask by plate, assign
    one class per row (``--assign-method greedy_jax`` on the run's device)
-   and write ``submission_{id}.csv``.
+   and write ``submission_{id}.csv``. ``--predict-scan-window K`` > 1 (one
+   process, not local mode) predicts windows of K batches, one CUDA graph
+   replay per window, with one step built once (for int8 after the
+   calibration) and shared by every experiment (``rxtpu/cli.py:488-570``).
 
 Multi-GPU (rxtpu's ``--distributed`` and ``--model-parallel M``): one
 process per GPU, launched by ``torchrun --nproc-per-node N -m
@@ -107,8 +110,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tta", default="none", choices=["none", "flips", "dihedral"])
     p.add_argument("--tta-average", default="probs", choices=["probs", "logits"])
     p.add_argument("--predict-scan-window", type=int, default=1,
-                   help="rxtpu's scanned predict window: accepted and ignored, the "
-                        "port predicts one batch per step (the same numbers)")
+                   help="K > 1: predict windows of K test batches, one CUDA graph replay "
+                        "per window (one process, not --debug local; the same numbers)")
     p.add_argument("--quantize", default="none", choices=["none", "int8"],
                    help="int8: W8A8 int8 inference (resnet backbones and densenet121, "
                         "mlp head)")
@@ -405,6 +408,7 @@ def run(args, mesh) -> int:
     )
     from rxtpu_torch.train.loop import last_checkpoint_path
     from rxtpu_torch.train.setup import build_model
+    from rxtpu_torch.train.step import make_scanned_predict_step
 
     cfg = resolve_config(args)
     device = resolve_device(args.device)
@@ -497,6 +501,11 @@ def run(args, mesh) -> int:
     else:
         step = Predictor(model, args.test_crop, args.tta, args.tta_average, dtype=dtype)
 
+    # one windowed step for every experiment: one graph capture per run
+    scan_window = max(1, args.predict_scan_window)
+    use_scan = scan_window > 1 and not cfg.local and world == 1
+    scan_step = None
+
     pred_by_id = {}
     for i, experiment in enumerate(experiments):
         idx_exp = idx_test_all.for_experiment(experiment)
@@ -505,7 +514,9 @@ def run(args, mesh) -> int:
                         num_hosts=world, host_id=rank)
         if step is None:
             step = quantized_step(model, pipe, args, dtype, device, group)
-        probs, ids = predict_dataset(step, pipe, device, group)
+        if use_scan and scan_step is None:
+            scan_step = make_scanned_predict_step(step, scan_window)
+        probs, ids = predict_dataset(step, pipe, device, group, scan_step=scan_step)
         exp_rows = [r for r in test_rows if r["experiment"] == experiment]
         if [r["id_code"] for r in exp_rows] != ids:
             raise RuntimeError(f"prediction rows of {experiment} do not follow test.csv")

@@ -34,14 +34,15 @@ rows' (rxtpu's span the global batch: the port gathers predictions with
 their ids, ``rxtpu_torch.infer.predict.predict_dataset``). A background thread
 assembles batches ahead into a bounded queue; ``device_prefetch`` queues
 the next batch's copy to the card from pinned host memory before the
-current batch is handed out.
+current batch is handed out (``double_buffer``), and ``stack_window``
+stacks a window of K batches into pinned memory for the scanned predict.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -257,6 +258,21 @@ class Pipeline:
             t.join(timeout=10)
 
 
+def double_buffer(host_iter: Iterator, put_fn: Callable[[Any], Any]) -> Iterator:
+    """Yield ``put_fn(item)`` one item ahead of consumption
+    (``rxtpu/data/pipeline.py:362``): item k+1 is put (stacked, pinned, its
+    copy to the card queued) before item k is handed out. The one buffering
+    policy of ``device_prefetch`` and the scanned predict's windows."""
+    prev = None
+    for item in host_iter:
+        cur = put_fn(item)
+        if prev is not None:
+            yield prev
+        prev = cur
+    if prev is not None:
+        yield prev
+
+
 def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device):
     """Yield batches as tensors on ``device``, one batch ahead of consumption.
 
@@ -281,11 +297,25 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device
                 out[k] = v
         return out
 
-    prev = None
-    for batch in host_iter:
-        cur = put(batch)
-        if prev is not None:
-            yield prev
-        prev = cur
-    if prev is not None:
-        yield prev
+    return double_buffer(host_iter, put)
+
+
+def stack_window(batches: List[Dict[str, object]], device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+    """The arrays of K batches stacked on a new leading axis on ``device``:
+    numpy arrays into one pinned host buffer per key, then one
+    ``non_blocking`` copy to the card (one plain tensor on the CPU); tensors
+    already decoded onto the card stacked there. Non-array entries are
+    left out."""
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in batches[0].items():
+        if isinstance(v, np.ndarray):
+            buf = torch.empty((len(batches),) + v.shape, dtype=torch.from_numpy(v).dtype,
+                              pin_memory=cuda)
+            for i, b in enumerate(batches):
+                buf[i].copy_(torch.from_numpy(b[k]))
+            out[k] = buf.to(device, non_blocking=True) if cuda else buf
+        elif isinstance(v, torch.Tensor):
+            out[k] = torch.stack([b[k].to(device) for b in batches])
+    return out

@@ -96,7 +96,9 @@ def _twin(model: TwoSitesNN, sd: Dict[str, torch.Tensor], folded: bool = True,
 
 class Autocast(nn.Module):
     """``net`` (f32 parameters) computing in ``dtype``: under ``torch.autocast``
-    for bf16 or f16, as it is for f32."""
+    for bf16 or f16, as it is for f32. The autocast cast cache is off (the
+    same numbers; each call casts its weights anew), as CUDA graph capture
+    needs (``rxtpu_torch.train.step.WindowStep``)."""
 
     def __init__(self, net: nn.Module, dtype: torch.dtype):
         super().__init__()
@@ -104,7 +106,8 @@ class Autocast(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         low = self.dtype in (torch.bfloat16, torch.float16)
-        with torch.autocast(x.device.type, dtype=self.dtype, enabled=low):
+        with torch.autocast(x.device.type, dtype=self.dtype, enabled=low,
+                            cache_enabled=False):
             return self.net(x)
 
 

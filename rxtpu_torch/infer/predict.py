@@ -14,19 +14,35 @@ views and takes the softmax of its logits, as rxtpu's ``model_fn`` path.
 With a process ``group`` each rank predicts its rows (its ``Pipeline``
 slice, with the whole head) and the probabilities and ids are gathered in
 global row order to every rank, as rxtpu replicates its predictions.
+
+The scanned predict (``rxtpu/infer/tta.py:72-203``): with a ``scan_step``
+(``make_scanned_tta_predict_step``, or any ``WindowStep`` over a per-batch
+step) or ``scan_window`` K > 1, ``predict_dataset`` drains the pipeline in
+windows of K batches, one graph replay each on the card
+(``rxtpu_torch.train.step.WindowStep``). The windows are stacked into
+pinned memory one ahead (``double_buffer``); a short tail window is padded
+by repeating its last batch, so the graph keeps one shape, and the pad
+slices are dropped. Each window's probabilities are copied back
+asynchronously, so the host stacks window k+2 while the card runs window
+k; at most two windows are in flight. Only in one process and without a
+``DummyClassifier``, as rxtpu's (``rxtpu/cli.py:488``); otherwise it
+predicts per batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rxtpu_torch.data.pipeline import Pipeline, device_prefetch
+from rxtpu_torch.data.pipeline import Pipeline, device_prefetch, double_buffer, stack_window
 from rxtpu_torch.infer.fold import fold
 from rxtpu_torch.models.twosites import DummyClassifier, TwoSitesNN
 from rxtpu_torch.parallel.multihost import all_gather_objects, all_gather_rows, comm_device
+
+if TYPE_CHECKING:  # train.step imports infer.fold: no import cycle at run time
+    from rxtpu_torch.train.step import WindowStep
 
 View = Callable[[torch.Tensor], torch.Tensor]
 
@@ -100,19 +116,40 @@ def average_variants(net: Callable, views: torch.Tensor, transforms: List[View],
     return acc if average == "probs" else torch.softmax(acc, dim=-1)
 
 
-def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device, group=None
+def make_scanned_tta_predict_step(model: TwoSitesNN, crop_size: Optional[int] = None,
+                                  tta: str = "none", average: str = "probs", window: int = 2,
+                                  dtype: torch.dtype = torch.bfloat16) -> WindowStep:
+    """``Predictor`` over windows of ``window`` batches: [K, B, G, C, H, W] ->
+    [K, B, classes], each slice the per-batch step's (``rxtpu/infer/tta.py:72``)."""
+    from rxtpu_torch.train.step import make_scanned_predict_step
+
+    return make_scanned_predict_step(Predictor(model, crop_size, tta, average, dtype),
+                                     window)
+
+
+def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device, group=None,
+                    scan_window: int = 1, scan_step: Optional[WindowStep] = None
                     ) -> Tuple[np.ndarray, List[str]]:
     """(probs [N, classes], id_codes [N]) for a test pipeline, padding removed.
     ``step`` maps a batch to probabilities, or is a ``DummyClassifier``.
     ``group``: the process group whose ranks hold ``pipe``'s slices, in
-    rank order."""
+    rank order. ``scan_step`` (a ``WindowStep`` built once and shared by
+    every experiment) or ``scan_window`` > 1 (a new one over ``step``)
+    predicts in windows, in one process without a ``DummyClassifier``."""
+    # the keep mask comes from id_codes, so `valid` never goes to the device
+    host_batches = ({k: v for k, v in b.items() if k != "valid"} for b in pipe.epoch(0))
+    if (scan_step is not None or scan_window > 1) and group is None \
+            and not isinstance(step, DummyClassifier):
+        if scan_step is None:
+            from rxtpu_torch.train.step import make_scanned_predict_step
+
+            scan_step = make_scanned_predict_step(step, scan_window)
+        return _predict_windows(scan_step, host_batches, device)
     if isinstance(step, DummyClassifier):
         dummy = step
 
         def step(batch):
             return torch.softmax(dummy(batch["images"]), dim=-1)
-    # the keep mask comes from id_codes, so `valid` never goes to the device
-    host_batches = ({k: v for k, v in b.items() if k != "valid"} for b in pipe.epoch(0))
     probs, ids = [], []
     for batch in device_prefetch(host_batches, device):
         ids.append(batch.pop("id_codes"))
@@ -126,6 +163,55 @@ def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device, group=
         probs_t = probs_t.transpose(0, 1).reshape((-1,) + tuple(probs_t.shape[3:]))
         parts = all_gather_objects(ids, group)
         ids = [part[b] for b in range(n_batches) for part in parts]
-    flat_ids = [i for batch_ids in ids for i in batch_ids]
-    keep = np.asarray([i != "" for i in flat_ids])
-    return probs_t.numpy()[keep], [i for i in flat_ids if i != ""]
+    return _keep_real(probs_t, [i for batch_ids in ids for i in batch_ids])
+
+
+def _keep_real(probs: torch.Tensor, ids: List[str]) -> Tuple[np.ndarray, List[str]]:
+    """The rows whose id is not empty (padding rows have ``""``)."""
+    keep = np.asarray([i != "" for i in ids])
+    return probs.numpy()[keep], [i for i in ids if i != ""]
+
+
+def _predict_windows(scan_step: WindowStep, host_batches, device: torch.device
+                     ) -> Tuple[np.ndarray, List[str]]:
+    """The windowed drain (``rxtpu/infer/tta.py:158``): windows of K batches,
+    the tail padded by its last batch, each window's output copied to pinned
+    host memory behind its replay; the host waits for window k-1's copy
+    after queueing window k."""
+    k = scan_step.window
+    cuda = torch.device(device).type == "cuda"
+
+    def windows():
+        buf = []
+        for b in host_batches:
+            buf.append(b)
+            if len(buf) == k:
+                yield buf
+                buf = []
+        if buf:
+            yield buf
+
+    def put_window(bufs):
+        ids = [b.pop("id_codes") for b in bufs]
+        n_real = len(bufs)
+        return stack_window(bufs + [bufs[-1]] * (k - n_real), device), ids, n_real
+
+    done: List[Tuple[torch.Tensor, List[List[str]], int]] = []
+    pending = None  # the event behind the previous window's copy
+    for window, ids, n_real in double_buffer(windows(), put_window):
+        out = scan_step(window)  # [K, B, classes], overwritten by the next replay
+        if cuda:
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)  # queued behind this replay, before the next
+            event = torch.cuda.Event()
+            event.record()
+            if pending is not None:
+                pending.synchronize()  # window k-1 done: at most two in flight
+            pending = event
+        else:
+            host = out
+        done.append((host, ids, n_real))
+    if pending is not None:
+        pending.synchronize()
+    probs = torch.cat([host[i] for host, _, n_real in done for i in range(n_real)])
+    return _keep_real(probs, [i for _, ids, _ in done for batch_ids in ids for i in batch_ids])

@@ -23,12 +23,15 @@ ResNet backbones with the MLP head, and DenseNet-121 with the MLP head.
    none`` as ``[identity]``) K1 writes bf16 views and the stem conv
    quantizes them; without, K1 writes int8 views at ``conv_init.in_scale``
    in its one pass (quantize-at-source).
+4. ``make_scanned_quantized_predict_step``: ``QuantPredictor`` over windows
+   of K batches, one CUDA graph replay per window on the card
+   (``rxtpu_torch.train.step.WindowStep``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterable, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, Iterable, List, Optional
 
 import torch
 
@@ -40,6 +43,9 @@ from rxtpu_torch.models.quant import ConvObserver
 from rxtpu_torch.models.twosites import TwoSitesNN
 from rxtpu_torch.ops.crop_norm import eval_batch_normalize
 from rxtpu_torch.ops.int8_conv import pack_weight
+
+if TYPE_CHECKING:  # train.step imports infer.fold: no import cycle at run time
+    from rxtpu_torch.train.step import WindowStep
 
 # conv name in the backbone -> {in_absmax, in_absmax_ch, out_absmax, out_absmax_ch};
 # DenseNet's segment observations (stem_absmax, transition{i}_absmax, and _ch) -> tensor
@@ -247,3 +253,15 @@ class QuantPredictor:
         """{images uint8 [B,G,C,H,W], mean/std f32 [B,C]} -> f32 probs [B, classes]."""
         views = self.front(batch["images"], batch["mean"], batch["std"])
         return average_variants(self.net, views, self.transforms, self.average)
+
+
+def make_scanned_quantized_predict_step(qmodel: TwoSitesNN, crop_size: Optional[int] = None,
+                                        transforms: Optional[List[View]] = None,
+                                        average: str = "probs", window: int = 2
+                                        ) -> WindowStep:
+    """``QuantPredictor`` over windows of ``window`` batches -> [K, B, classes],
+    each slice the per-batch step's (``rxtpu/infer/quant.py:303``)."""
+    from rxtpu_torch.train.step import make_scanned_predict_step
+
+    return make_scanned_predict_step(QuantPredictor(qmodel, crop_size, transforms, average),
+                                     window)

@@ -101,7 +101,9 @@ class TwoSitesNN(nn.Module):
         if isinstance(self.head, ArcFaceHead):
             return self.head(grouped, labels)
         if self.backbone.quantized and not self.head.folded:
-            with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            # no cast cache: the step may run under CUDA graph capture
+            with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32,
+                                cache_enabled=False):
                 return self.head(grouped)
         return self.head(grouped)
 

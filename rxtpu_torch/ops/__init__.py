@@ -1,3 +1,6 @@
+from rxtpu_torch.ops import fused_block as _fused_block
+from rxtpu_torch.ops import int8_conv as _int8_conv
+from rxtpu_torch.ops.batchnorm import FusedBatchNorm, batch_stats_one_pass, bn_train_apply
 from rxtpu_torch.ops.crop_norm import (
     crop_normalize, crop_normalize_reference, eval_batch_normalize,
 )
@@ -8,6 +11,7 @@ from rxtpu_torch.ops.fused_block import (
 from rxtpu_torch.ops.fused_stem import (
     eval_batch_stem, fused_stem, fused_stem_reference, stem_out_size,
 )
+from rxtpu_torch.ops.maxpool import max_pool_3x3s2
 from rxtpu_torch.ops.shear import (
     apply_affine_shear, augment_batch_shear, decompose_angle, dihedral, dihedral_bits,
     rotate_crop_normalize, rotate_crop_normalize_fused, shear_pass, shear_pass_finish,
@@ -24,6 +28,13 @@ def augment_passthrough(images, mean, std, generator=None, crop_size=364, train=
     """'none' backend: ``images`` already hold normalized NCHW views (the
     lockstep parity runs feed the same views to rxtpu and the port)."""
     return images
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter (an object whose ``launches`` the
+    wrapper raises by one per launch): K1, K2-K4, K5, K6/K7's bodies and K8."""
+    return [crop_normalize, shear_pass, shear_pass_rows, shear_pass_finish, fused_stem,
+            *_fused_block.BODIES, _int8_conv._counter]
 
 
 def get_augment_fn(backend: str = "shear"):
@@ -47,12 +58,13 @@ def get_augment_fn(backend: str = "shear"):
 
 
 __all__ = [
-    "BottleneckFused", "apply_affine_shear", "apply_affine_warp", "augment_batch",
-    "augment_batch_shear", "augment_passthrough", "bottleneck_fused",
-    "center_crop_normalize_reference", "conv1x1_to_mat", "conv3x3_to_taps", "crop_normalize",
-    "crop_normalize_reference", "decompose_angle", "dihedral", "dihedral_bits",
-    "eval_batch_normalize", "eval_batch_stem", "fused_stem", "fused_stem_reference",
-    "get_augment_fn", "mat_to_conv1x1", "reflect101", "rotate_crop_normalize",
+    "apply_affine_shear", "apply_affine_warp", "augment_batch", "augment_batch_shear",
+    "augment_passthrough", "batch_stats_one_pass", "bn_train_apply", "bottleneck_fused",
+    "BottleneckFused", "center_crop_normalize_reference", "conv1x1_to_mat", "conv3x3_to_taps",
+    "crop_normalize", "crop_normalize_reference", "decompose_angle", "dihedral",
+    "dihedral_bits", "eval_batch_normalize", "eval_batch_stem", "fused_stem",
+    "fused_stem_reference", "FusedBatchNorm", "get_augment_fn", "launch_counters",
+    "mat_to_conv1x1", "max_pool_3x3s2", "reflect101", "rotate_crop_normalize",
     "rotate_crop_normalize_fused", "sample_affine_params", "sample_view_params", "shear_pass",
     "shear_pass_finish", "shear_pass_rows", "stem_out_size", "taps_to_conv3x3",
 ]

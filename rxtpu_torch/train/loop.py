@@ -14,7 +14,9 @@
   resumes too: its nesterov trace becomes the SGD momentum, and its best
   checkpoint stays as it is until a better one is written;
 - early stopping on val accuracy with patience, where a tie is not an
-  improvement.
+  improvement;
+- a per-epoch progress bar on stderr when it is a tty (``progress_bar``),
+  with the lag-one loss as its postfix.
 
 On a mesh (``rxtpu_torch.parallel``; ``train_pipe`` and ``val_pipe`` the
 rank's slices) every rank steps, validates its rows and sums
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from typing import Callable, Dict, Optional
 
 import torch
@@ -50,6 +53,48 @@ from rxtpu_torch.train.step import EvalStep, TrainState, make_train_step
 
 def last_checkpoint_path(cfg: Config) -> str:
     return os.path.join(cfg.train.checkpoint_dir, f"last_{cfg.experiment_id}.ckpt")
+
+
+class _LineBar:
+    """The bar without tqdm: one line on stderr, rewritten after ``\\r``."""
+
+    def __init__(self, total: int, epoch: int):
+        self.total, self.epoch, self.n, self.postfix, self._width = total, epoch, 0, "", 0
+
+    def update(self, n: int = 1) -> None:
+        self.n += n
+        self._write(self._line())
+
+    def set_postfix(self, refresh: bool = True, **kw) -> None:
+        self.postfix = ", ".join(f"{k}={v}" for k, v in kw.items())
+        if refresh:
+            self._write(self._line())
+
+    def _line(self) -> str:
+        return f"epoch {self.epoch}: {self.n}/{self.total} {self.postfix}".rstrip()
+
+    def _write(self, text: str) -> None:
+        sys.stderr.write("\r" + text.ljust(self._width))
+        sys.stderr.flush()
+        self._width = max(self._width, len(text))
+
+    def close(self) -> None:
+        self._write("")  # blank the line, as tqdm's leave=False
+        sys.stderr.write("\r")
+        sys.stderr.flush()
+
+
+def progress_bar(total: int, epoch: int):
+    """The epoch's progress bar (``rxtpu/train/loop.py:46-56``, the
+    reference's ignite ProgressBar): tqdm's, or ``_LineBar`` where tqdm is
+    not installed; None when stderr is not a tty (logs stay clean)."""
+    if not sys.stderr.isatty():
+        return None
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return _LineBar(total, epoch)
+    return tqdm(total=total, desc=f"epoch {epoch}", leave=False)
 
 
 @dataclasses.dataclass
@@ -180,8 +225,10 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
             host = ({k: v for k, v in b.items() if k not in ("id_codes", "valid")}
                     for b in train_pipe.epoch(epoch, start_batch=sb))
             it = device_prefetch(host, device)
+            pbar = progress_bar(len(train_pipe) - sb, epoch)
             batch_i = sb
             prev_m = None
+            prev_loss = float("nan")
             while True:
                 with timer.waiting():
                     batch = next(it, None)
@@ -190,9 +237,12 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
                 with timer.stepping():
                     m = train_step(state, batch, seed, trainable)
                     batch_i += 1
-                    if prev_m is not None:
-                        float(prev_m["loss"])  # lag-one readback: step i-1 is done
+                    if prev_m is not None:  # lag-one readback: step i-1 is done
+                        prev_loss = float(prev_m["loss"])
                     prev_m = m
+                if pbar is not None:
+                    pbar.update(1)
+                    pbar.set_postfix(loss=f"{prev_loss:.3f}", refresh=False)
                 if state.step % cfg.train.log_every_steps == 0:
                     logger.log(state.step, {k: float(v) for k, v in m.items()},
                                prefix="training")
@@ -200,6 +250,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
                 if every and state.step % every == 0 and batch_i < len(train_pipe):
                     save_last(epoch=epoch, batch_in_epoch=batch_i, best_metric=ckpt.best,
                               epochs_without_improvement=epochs_without_improvement)
+            if pbar is not None:
+                pbar.close()
             logger.log(state.step, timer.summary(), prefix="perf")
 
             val_m = validate(epoch)

@@ -25,19 +25,25 @@ evaluates unfolded, on its running statistics), then exact sums
 ``fused_stem=True`` the kernel K5 runs crop, normalize and the whole stem on
 the raw batch, and the twin goes on from the stem's maps
 (``rxtpu_torch.infer.fold.fold``).
+
+The scanned steps (rxtpu's ``make_scanned_eval_step`` and
+``make_scanned_predict_step``, ``rxtpu/train/step.py:257,348``): a window
+of K batches stacked on a leading axis, one device dispatch for the K. On
+the card ``WindowStep`` captures K calls of the per-batch step into one CUDA
+graph and replays it once per window; on the CPU it makes the K calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rxtpu_torch.infer.fold import fold
-from rxtpu_torch.ops import get_augment_fn
+from rxtpu_torch.ops import get_augment_fn, launch_counters
 from rxtpu_torch.parallel.dp import allreduce_grads, tp_named_parameters
 from rxtpu_torch.train.optim import head_only_mask, make_optimizer, masked_grads_with_wd
 
@@ -177,3 +183,122 @@ class EvalStep:
         correct = (logits.argmax(-1) == labels).float()
         return {"loss_sum": (losses * valid).sum(), "correct": (correct * valid).sum(),
                 "count": valid.sum()}
+
+
+class WindowStep:
+    """``step`` over a window of K batches, ``{key: [K, ...]}`` (``images``
+    uint8 [K, B, G, C, H, W], ``mean``/``std`` f32 [K, B, C], and whatever
+    else ``step`` reads), K = ``window``; ``reduce`` combines the K outputs.
+
+    On CUDA the first call copies the window into static input buffers, runs
+    it once eagerly on a side stream (a warm-up: the kernels' libraries
+    load, K5's and K8's shared-memory limits are set and cuDNN settles its
+    algorithms, none of it under capture), then captures the K calls over
+    the static slices into one ``torch.cuda.CUDAGraph``. Every call, the
+    first included, copies the window into the static inputs and replays the
+    graph: one dispatch for K batches. It returns the static output, which
+    the next call overwrites: read it (or queue a copy of it) before then.
+    A failed capture or replay raises; nothing falls back to the per-batch
+    loop. The kernel wrappers count host calls, so a replay would add
+    nothing to their launch counts: the launches the capture recorded are
+    added on each replay, and those of the warm-up and the capture itself
+    are taken back out (set-up, not the path's work).
+
+    On the CPU it makes the K per-batch calls (the plain version, with the
+    same numbers)."""
+
+    def __init__(self, step: Callable[[Batch], Any], window: int,
+                 reduce: Callable[[List[Any]], Any]):
+        if window < 1:
+            raise ValueError(f"the window must hold at least one batch, got {window}")
+        self.step, self.window, self.reduce = step, window, reduce
+        self.graph = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._out = None
+        self._per_replay: List[Tuple[Any, int]] = []
+
+    def _run(self, batches: Batch):
+        return self.reduce([self.step({k: v[i] for k, v in batches.items()})
+                            for i in range(self.window)])
+
+    def __call__(self, batches: Batch):
+        k = batches["images"].shape[0]
+        if k != self.window or any(v.shape[0] != k for v in batches.values()):
+            raise ValueError(f"a window of {self.window} batches expected, got "
+                             f"{ {key: tuple(v.shape) for key, v in batches.items()} }")
+        device = batches["images"].device
+        if device.type == "cpu":
+            return self._run(batches)
+        if device.type != "cuda":
+            raise ValueError(f"WindowStep runs on cuda or cpu, got {device}")
+        if self.graph is None:
+            self._capture(batches)  # its static inputs hold this window
+        else:
+            self._load(batches)
+        self.graph.replay()
+        for counter, n in self._per_replay:
+            counter.launches += n
+        return self._out
+
+    def _load(self, batches: Batch) -> None:
+        if set(batches) != set(self._static):
+            raise ValueError(f"the window holds {sorted(batches)}, the graph was captured "
+                             f"on {sorted(self._static)}")
+        for key, t in self._static.items():
+            v = batches[key]
+            if v.shape != t.shape or v.dtype != t.dtype or v.device != t.device:
+                raise ValueError(f"{key}: {v.dtype} {tuple(v.shape)} on {v.device}; the graph "
+                                 f"was captured on {t.dtype} {tuple(t.shape)} on {t.device}")
+            t.copy_(v)
+
+    def _capture(self, batches: Batch) -> None:
+        device = batches["images"].device
+        static = {key: v.clone(memory_format=torch.contiguous_format)
+                  for key, v in batches.items()}
+        counters = launch_counters()
+        before = [c.launches for c in counters]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._run(static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        warm = [c.launches for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: the pipeline's decode threads may call the CUDA
+            # runtime while this thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = self._run(static)
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.window} calls of the step into a CUDA graph "
+                               f"failed: {e}") from e
+        finally:
+            captured = [c.launches - w for c, w in zip(counters, warm)]
+            for c, b in zip(counters, before):
+                c.launches = b
+        self._per_replay = [(c, n) for c, n in zip(counters, captured) if n]
+        self._static, self._out, self.graph = static, out, graph
+
+
+def _stack(outs: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(outs)
+
+
+def _sum_metrics(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    return {key: torch.stack([o[key] for o in outs]).sum(0) for key in outs[0]}
+
+
+def make_scanned_predict_step(step: Callable[[Batch], torch.Tensor], window: int
+                              ) -> WindowStep:
+    """``step`` (a ``Predictor``, ``QuantPredictor`` or any batch ->
+    probabilities [B, classes]) over a window: [K, B, classes], each slice
+    the per-batch step's output on that batch (``rxtpu/train/step.py:348``)."""
+    return WindowStep(step, window, _stack)
+
+
+def make_scanned_eval_step(eval_step: Callable[[Batch], Dict[str, torch.Tensor]],
+                           window: int) -> WindowStep:
+    """``eval_step`` (an ``EvalStep``) over a window: ``loss_sum``,
+    ``correct`` and ``count`` summed over the K batches in f32, as K calls
+    summed (``rxtpu/train/step.py:257``)."""
+    return WindowStep(eval_step, window, _sum_metrics)

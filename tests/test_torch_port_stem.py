@@ -10,8 +10,8 @@ rxtpu's, on the CPU.
   ``make_eval_step`` / ``make_predict_step(fused_stem=True)``, weights carried
   across by ``from_flax``;
 - rxtpu's scanned steps over a window of K batches against the port's
-  per-batch steps, which its CLI runs whatever ``--predict-scan-window``
-  says, and ``predict_dataset`` with the fused stem against the unfused
+  per-batch steps (the port's own scanned steps are in
+  ``test_torch_port_scan.py``), and ``predict_dataset`` with the fused stem against the unfused
   predictor over an odd number of batches. The CLI with
   ``--predict-scan-window 2`` against window 1 and rxtpu's CLI is in
   ``test_torch_port_serve.py``, beside the trained checkpoint it needs;
