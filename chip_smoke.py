@@ -99,6 +99,22 @@ Phases, each ending the run with a non-zero exit when it fails:
    each K6/K7 body 13 times per rank; its wall time is a path check, not a speed figure;
    (c) the bf16 train step at world 1 with and without the NCCL gradient
    all-reduce, by CUDA events, alternated;
+3f. ``--checkpoint-backend orbax`` (after 3e, on phase 3's fixture): (o)
+   rxtpu's OCDBT checkpoint in ``tests/data/orbax_ocdbt`` (orbax wrote it)
+   read on this host without orbax, bit-equal to the arrays beside it; (a)
+   one epoch of 4 steps under the flag (K2-K4 once per step, K1 once per
+   validation and test batch), its best and last checkpoints orbax
+   directories read back at their steps; the last one also written in the
+   port's format, and ``--resume`` for one more epoch from each (the port's
+   twice), cuDNN deterministic: the momentum on the card right after
+   loading bit-equal to the orbax trace, losses and final weights bit-equal
+   (within twice the spread of the two port-format runs if those differ);
+   (b) the test phase from the orbax best directory and from its port-format
+   copy on phase 4's fixture: the same submission bytes; (c) the last
+   directory renamed to ``<path>.old`` (a crash in the middle of the save's
+   swap): ``--resume`` finds it and ends as (a)'s orbax resume; (d) the save
+   and the load of the ResNet-50 rolling payload by the host's clock, with
+   the directory's bytes and files, beside the port format's;
 4. the test phase end to end (plate-leak assignment) on the checkpoint
    phase 3 trained, then again with ``--predict-scan-window 2`` (rxtpu's
    scanned predict window: one CUDA graph replay per window of 2 batches):
@@ -223,7 +239,7 @@ checks, phase 4f on a seeded random ResNet-50 and the int8 timings.
 ``python3 chip_smoke.py --densenet`` builds the kernels and runs only K8's
 DenseNet checks of phase 2, 3c, 4g and DenseNet's timings of phase 7.
 ``python3 chip_smoke.py --resume`` builds the kernels and runs phase 3 for
-one epoch, phase 4's test phase, phase 3d and greedy_jax's timing.
+one epoch, phase 4's test phase, phases 3d and 3f and greedy_jax's timing.
 ``python3 chip_smoke.py --distributed`` builds the kernels and runs phase
 3e on phase 3's fixture.
 ``python3 chip_smoke.py --scan`` builds the kernels and runs only phase 4h,
@@ -2826,6 +2842,67 @@ def greedy_probs(dev):
     return torch.softmax(logits, dim=-1)
 
 
+def run_gaps(a, b):
+    """Two runs' (losses, final state_dict): the losses' max |diff|, the
+    weights' relative L2 distance, and whether both are bit-equal."""
+    import torch
+
+    (la, sa), (lb, sb) = a, b
+    num = sum(float((sa[k].double() - sb[k].double()).norm()) ** 2 for k in sa)
+    den = sum(float(sb[k].double().norm()) ** 2 for k in sb)
+    same = all(torch.equal(sa[k], sb[k]) for k in sa) and la == lb
+    return max(abs(x - y) for x, y in zip(la, lb)), (num / den) ** 0.5, same
+
+
+def resumed_run(cli, base, label, argv_run, models, train_dir, names, shear_kernels,
+                crop_normalize):
+    """``cli.main(argv_run)`` (every step logged) from a fresh directory
+    ``base/label`` whose ``models/`` holds ``models`` ({file name: a file or
+    an orbax directory to copy}), ``train_dir`` in ``argv_run`` standing for
+    it; returns the directory, K2-K4's launches, K1's and the state the first
+    step saw (its step, and the momentum on the card by parameter name)."""
+    from rxtpu_torch.train import loop as port_loop
+
+    run_dir = os.path.join(base, label)
+    os.makedirs(os.path.join(run_dir, "models"))
+    for name, path in models.items():
+        dst = os.path.join(run_dir, "models", name)
+        if os.path.isdir(path):
+            shutil.copytree(path, dst)
+        else:
+            shutil.copy(path, dst)
+    argv_run = [run_dir if a == train_dir else a for a in argv_run]
+    seen = {}
+    real = port_loop.make_train_step
+
+    def first_step_snapshot(*a, **k):
+        fn = real(*a, **k)
+
+        def step(state, *args):
+            if not seen:  # right after loading: the optimizer's state on the card
+                slots = [state.optimizer.state.get(p, {}) for p in state.model.parameters()]
+                seen.update(step=state.step, momentum={
+                    n: s["momentum_buffer"].detach().clone()
+                    for n, s in zip(names, slots) if s.get("momentum_buffer") is not None})
+            return fn(state, *args)
+        return step
+
+    port_loop.make_train_step = first_step_snapshot
+    for kernel in shear_kernels:
+        kernel.launches = 0
+    crop_normalize.launches = 0
+    try:
+        rc, wall = dn_run(cli, run_dir, argv_run, log_every_step=True)
+    finally:
+        port_loop.make_train_step = real
+    launches = [k.launches for k in shear_kernels]
+    print(f"{label}: cli rc {rc} in {wall:.2f} s; K2-K4 launches {launches}, K1 "
+          f"{crop_normalize.launches}")
+    if rc != 0:
+        fail(f"{label}: cli exited {rc}")
+    return run_dir, launches, crop_normalize.launches, seen
+
+
 def resume_profile_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop_normalize,
                          test_run=None):
     """Phase 3d on phase 3's fixture and its last checkpoint (epoch E, step
@@ -2844,7 +2921,6 @@ def resume_profile_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop
 
     from rxtpu_torch.models.convert import from_flax
     from rxtpu_torch.models.twosites import TwoSitesNN
-    from rxtpu_torch.train import loop as port_loop
     from rxtpu_torch.train.checkpoint import (
         is_port_format, load_train_state, read_rxtpu_pickle, save_checkpoint,
     )
@@ -2876,42 +2952,10 @@ def resume_profile_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop
     ckpts["port_best"] = os.path.join(train_dir, "models", "best_model_smoke.ckpt")
 
     def run(label, argv_run, models):
-        """``cli.main(argv_run)`` from a fresh directory whose ``models/``
-        holds ``models`` ({"best_model": path, "last": path}); returns the
-        directory, K2-K4's launches and the state the first step saw."""
-        run_dir = os.path.join(WORK, "resume", label)
-        os.makedirs(os.path.join(run_dir, "models"))
-        for name, path in models.items():
-            shutil.copy(path, os.path.join(run_dir, "models", f"{name}_smoke.ckpt"))
-        argv_run = [run_dir if a == train_dir else a for a in argv_run]
-        seen = {}
-        real = port_loop.make_train_step
-
-        def first_step_snapshot(*a, **k):
-            fn = real(*a, **k)
-
-            def step(state, *args):
-                if not seen:  # right after loading: the optimizer's state on the card
-                    opt = state.optimizer
-                    seen.update(step=state.step, momentum={
-                        n: opt.state[p]["momentum_buffer"].detach().clone()
-                        for n, p in zip(names, state.model.parameters())})
-                return fn(state, *args)
-            return step
-
-        port_loop.make_train_step = first_step_snapshot
-        for kernel in shear_kernels:
-            kernel.launches = 0
-        crop_normalize.launches = 0
-        try:
-            rc, wall = dn_run(cli, run_dir, argv_run, log_every_step=True)
-        finally:
-            port_loop.make_train_step = real
-        launches = [k.launches for k in shear_kernels]
-        print(f"{label}: cli rc {rc} in {wall:.2f} s; K2-K4 launches {launches}, K1 "
-              f"{crop_normalize.launches}")
-        if rc != 0:
-            fail(f"{label}: cli exited {rc}")
+        run_dir, launches, _, seen = resumed_run(
+            cli, os.path.join(WORK, "resume"), label, argv_run,
+            {f"{name}_smoke.ckpt": path for name, path in models.items()}, train_dir, names,
+            shear_kernels, crop_normalize)
         return run_dir, launches, seen
 
     # (a) an epoch-end resume from rxtpu's layout
@@ -2976,15 +3020,8 @@ def resume_profile_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
 
-    def gaps(a, b):
-        (la, sa), (lb, sb) = runs[a], runs[b]
-        num = sum(float((sa[k].double() - sb[k].double()).norm()) ** 2 for k in sa)
-        den = sum(float(sb[k].double().norm()) ** 2 for k in sb)
-        same = all(torch.equal(sa[k], sb[k]) for k in sa) and la == lb
-        return max(abs(x - y) for x, y in zip(la, lb)), (num / den) ** 0.5, same
-
-    (l_rx, w_rx, same_rx) = gaps("b_rxtpu_mid_epoch", "b_port_mid_epoch_1")
-    (l_pp, w_pp, same_pp) = gaps("b_port_mid_epoch_2", "b_port_mid_epoch_1")
+    (l_rx, w_rx, same_rx) = run_gaps(runs["b_rxtpu_mid_epoch"], runs["b_port_mid_epoch_1"])
+    (l_pp, w_pp, same_pp) = run_gaps(runs["b_port_mid_epoch_2"], runs["b_port_mid_epoch_1"])
     print(f"(b) rxtpu-layout against port-format resume: losses max|diff| {l_rx:.3g}, final "
           f"weights relative L2 {w_rx:.3g}, bit-equal {same_rx}; the two port-format "
           f"resumes: {l_pp:.3g}, {w_pp:.3g}, bit-equal {same_pp} (cuDNN deterministic)")
@@ -3064,6 +3101,292 @@ def greedy_jax_timings(dev, card):
           f"clock (host probabilities to host results), loop {loop_ms:.3f} ms CUDA events, "
           f"{launches} kernel launches ({launches / GREEDY_N:.1f} per iteration)")
     return ms, loop_ms, launches
+
+
+# ---------------------------------------------------------------------------
+# --checkpoint-backend orbax (phase 3f): rxtpu's orbax directories written and
+# read without orbax, tensorstore or JAX
+# ---------------------------------------------------------------------------
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_ocdbt")  # written by rxtpu, OCDBT
+
+
+def dir_files(path):
+    """(bytes, files) under a directory."""
+    sizes = [os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(path) for n in ns]
+    return sum(sizes), len(sizes)
+
+
+def orbax_fixture_check():
+    """Phase 3f (o): rxtpu's OCDBT checkpoint in ``tests/data/orbax_ocdbt``
+    (orbax and tensorstore wrote it) read on this host by the port: every
+    array bit-equal to ``expected.npz``, the tree (lists, dicts, None, {})
+    that ``expected.json`` gives, a chunk read from a data file."""
+    import numpy as np
+
+    from rxtpu_torch.train.checkpoint import load_checkpoint_orbax
+    from rxtpu_torch.train.ocdbt import read_manifest, read_ocdbt
+
+    path = os.path.join(ORBAX_FIXTURE, "ckpt")
+    t0 = time.perf_counter()
+    store = read_ocdbt(path)
+    got = load_checkpoint_orbax(path)
+    wall = time.perf_counter() - t0
+    expected = np.load(os.path.join(ORBAX_FIXTURE, "expected.npz"))
+    with open(os.path.join(ORBAX_FIXTURE, "expected.json")) as f:
+        tree = json.load(f)
+    off = []
+
+    def walk(g, w, where):
+        if isinstance(w, dict) or isinstance(w, list):
+            if type(g) is not type(w) or len(g) != len(w):
+                off.append(where)
+                return
+            for k, v in (w.items() if isinstance(w, dict) else enumerate(w)):
+                if isinstance(w, dict) and k not in g:
+                    off.append(f"{where}.{k}")
+                else:
+                    walk(g[k], v, f"{where}.{k}")
+        elif w is None:
+            if g is not None:
+                off.append(where)
+        else:
+            want = expected[w]
+            if not (isinstance(g, np.ndarray) and g.dtype == want.dtype and g.shape == want.shape
+                    and g.tobytes() == want.tobytes()):
+                off.append(where)
+
+    walk(got, tree, "payload")
+    manifest = read_manifest(path)
+    print(f"(o) rxtpu's OCDBT checkpoint (tests/data/orbax_ocdbt, {dir_files(path)[0]} bytes, "
+          f"{dir_files(path)[1]} files; B+tree of height {manifest['root_height']}, "
+          f"{len(store)} keys, chunk of params.dense.kernel "
+          f"{len(store[b'params.dense.kernel/0.0'])} bytes in a data file) read in "
+          f"{wall * 1e3:.1f} ms: {len(expected.files)} arrays, mismatches {off}")
+    if off:
+        fail(f"(o) the OCDBT checkpoint reads otherwise than rxtpu restored it: {off[:5]}")
+
+
+def port_copy(saved, names, path, net):
+    """``saved`` (``load_train_state``'s payload of an orbax directory)
+    written in the port's own format, the trace as the SGD momentum."""
+    from rxtpu_torch.train.checkpoint import save_checkpoint
+    from rxtpu_torch.train.optim import make_optimizer, sgd_state_from_trace
+
+    opt = sgd_state_from_trace(make_optimizer(net.parameters()), names, saved["trace"])
+    meta = {k: saved[k] for k in ("step", "epoch", "batch_in_epoch", "best_metric",
+                                  "epochs_without_improvement") if k in saved}
+    save_checkpoint(path, saved["state_dict"], optimizer=opt, **meta)
+
+
+def orbax_phase(dev, cli, train_dir, argv, n_steps, shear_kernels, crop_normalize, card,
+                test_run):
+    """Phase 3f on phase 3's fixture at full width: (o) ``orbax_fixture_check``;
+    (a) one epoch of ``n_steps`` steps with ``--checkpoint-backend orbax``
+    (K2-K4 once per step, K1 once per validation and test batch), its best
+    and last checkpoints orbax directories that ``load_checkpoint_orbax``
+    reads back at their steps; the last one written again in the port's
+    format, and ``--resume`` for one more epoch from each (the port's
+    twice), cuDNN deterministic: the momentum on the card right after
+    loading bit-equal to the orbax trace, losses and final weights bit-equal
+    to the port format's (within twice the spread of the two port-format
+    runs if those differ); (b) the test phase (``test_run``: phase 4's
+    fixture, directory and argv) from the orbax best directory and from the
+    same weights in the port's format: the same submission bytes; (c) the
+    last directory renamed to ``<path>.old``, as a crash in the middle of
+    the save's swap leaves it: ``--resume`` finds it, trains one epoch, and
+    leaves one last directory; (d) the save and the load of the ResNet-50
+    rolling payload by the host's clock, with the directory's bytes and
+    files, beside the port format's."""
+    import numpy as np
+    import torch
+
+    from rxtpu_torch.models.twosites import TwoSitesNN
+    from rxtpu_torch.train.checkpoint import (
+        is_orbax_checkpoint, is_port_format, load_checkpoint, load_checkpoint_orbax,
+        load_train_state, save_checkpoint, save_checkpoint_orbax,
+    )
+
+    t_start = time.perf_counter()
+    base = os.path.join(WORK, "orbax")
+    orbax_fixture_check()
+    net = TwoSitesNN("resnet50", nb_classes=1108)
+    names = [n for n, _ in net.named_parameters()]
+
+    # (a) one epoch under --checkpoint-backend orbax
+    argv_a = argv[:argv.index("--epochs")] + argv[argv.index("--epochs") + 2:] + [
+        "--epochs", "1", "--checkpoint-backend", "orbax"]
+    run_a, launches, k1, _ = resumed_run(cli, base, "a_train", argv_a, {}, train_dir, names,
+                                         shear_kernels, crop_normalize)
+    val_batches, test_batches = 2, 1
+    if launches != [n_steps] * 3 or k1 != 2 * val_batches + test_batches:
+        fail(f"(a) K2-K4 launched {launches}, K1 {k1} times for one epoch of {n_steps} steps, "
+             f"2 validations of {val_batches} batches and {test_batches} test batch")
+    models = os.path.join(run_a, "models")
+    best, last = (os.path.join(models, f"{n}_smoke.ckpt") for n in ("best_model", "last"))
+    logged = read_jsonl(os.path.join(run_a, "board", "smoke", "metrics.jsonl"))
+    vals = [(r["step"], r["validation/accuracy"]) for r in logged if "validation/accuracy" in r]
+    best_step = max(vals, key=lambda v: v[1])[0]  # the first of the highest: strict improvement
+    trees = {p: load_checkpoint_orbax(p) for p in (best, last)}
+    steps = {p: int(t["step"]) for p, t in trees.items()}
+    listing = sorted(os.listdir(models))
+    print(f"(a) checkpoints {listing}: orbax directories "
+          f"{[is_orbax_checkpoint(p) for p in (best, last)]}, steps {[steps[best], steps[last]]} "
+          f"(validations at (step, accuracy) {vals}), last: {dir_files(last)[1]} files, "
+          f"{dir_files(last)[0] / 1e6:.1f} MB")
+    if listing != ["best_model_smoke.ckpt", "last_smoke.ckpt"] or not all(
+            os.path.isdir(p) for p in (best, last)):
+        fail(f"(a) the orbax run left {listing}, not two orbax directories")
+    if steps[last] != n_steps or steps[best] != best_step or \
+            int(trees[last]["opt_state"][1]["count"]) != n_steps:
+        fail(f"(a) orbax checkpoints at steps {steps}, expected last {n_steps}, best {best_step}")
+    with open(os.path.join(last, "_METADATA")) as f:
+        if json.load(f)["use_ocdbt"] is not False:
+            fail("(a) the port wrote no plain zarr layout")
+    saved_last, saved_best = load_train_state(last), load_train_state(best)
+    src = os.path.join(base, "src")
+    os.makedirs(src)
+    port_last, port_best = os.path.join(src, "port_last.ckpt"), os.path.join(src, "port_best.ckpt")
+    port_copy(saved_last, names, port_last, net)
+    port_copy(saved_best, names, port_best, net)
+
+    resume = argv_a[:argv_a.index("--epochs")] + argv_a[argv_a.index("--epochs") + 2:] + [
+        "--resume", "--epochs", "2"]
+    as_pickle = [("pickle" if a == "orbax" else a) for a in resume]
+    saved_det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for label, argv_run, ckpts in (
+                ("a_orbax_resume", resume, {"best_model_smoke.ckpt": best,
+                                            "last_smoke.ckpt": last}),
+                ("a_port_resume_1", as_pickle, {"best_model_smoke.ckpt": port_best,
+                                                "last_smoke.ckpt": port_last}),
+                ("a_port_resume_2", as_pickle, {"best_model_smoke.ckpt": port_best,
+                                                "last_smoke.ckpt": port_last}),
+                ("c_orbax_old", resume, {"best_model_smoke.ckpt": best,
+                                         "last_smoke.ckpt.old": last})):
+            run_dir, launches, k1, seen = resumed_run(cli, base, label, argv_run, ckpts, train_dir,
+                                                      names, shear_kernels, crop_normalize)
+            mom = seen.get("momentum", {})
+            off = [n for n in names if not (n in mom and mom[n].device.type == dev.type
+                                            and torch.equal(mom[n].cpu(), saved_last["trace"][n]))]
+            out = os.path.join(run_dir, "models", "last_smoke.ckpt")
+            final = load_train_state(out)
+            losses = [r["training/loss"] for r in read_jsonl(
+                os.path.join(run_dir, "board", "smoke", "metrics.jsonl")) if "training/loss" in r]
+            left = sorted(os.listdir(os.path.join(run_dir, "models")))
+            print(f"{label}: first step at step {seen.get('step')}; {len(names) - len(off)} of "
+                  f"{len(names)} momentum buffers on the card bit-equal to the orbax trace; "
+                  f"losses {losses}; last at epoch {final['epoch']} step {final['step']} "
+                  f"({'orbax directory' if os.path.isdir(out) else 'port format'}); models/ "
+                  f"{left}")
+            if off or seen.get("step") != n_steps:
+                fail(f"{label}: the resumed state differs from the orbax checkpoint's: buffers "
+                     f"{off[:3]}, step {seen.get('step')}")
+            if launches != [n_steps] * 3 or k1 != val_batches + test_batches:
+                fail(f"{label}: K2-K4 launched {launches}, K1 {k1} times for one epoch")
+            if (final["epoch"], final["step"]) != (2, 2 * n_steps) or len(losses) != n_steps \
+                    or not all(math.isfinite(v) for v in losses):
+                fail(f"{label}: the resumed run did not train one epoch with finite losses")
+            if os.path.isdir(out) != (argv_run is resume) or left != [
+                    "best_model_smoke.ckpt", "last_smoke.ckpt"]:
+                fail(f"{label}: models/ holds {left}, the last checkpoint "
+                     f"{'a directory' if os.path.isdir(out) else 'a file'}")
+            runs[label] = (losses, final["state_dict"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_det
+    (l_op, w_op, same_op) = run_gaps(runs["a_orbax_resume"], runs["a_port_resume_1"])
+    (l_pp, w_pp, same_pp) = run_gaps(runs["a_port_resume_2"], runs["a_port_resume_1"])
+    (l_oc, w_oc, same_oc) = run_gaps(runs["c_orbax_old"], runs["a_orbax_resume"])
+    print(f"(a) orbax against port-format resume: losses max|diff| {l_op:.3g}, final weights "
+          f"relative L2 {w_op:.3g}, bit-equal {same_op}; the two port-format resumes: "
+          f"{l_pp:.3g}, {w_pp:.3g}, bit-equal {same_pp}; (c) from {os.path.basename(last)}.old "
+          f"against from the directory: {l_oc:.3g}, {w_oc:.3g}, bit-equal {same_oc} (cuDNN "
+          "deterministic)")
+    if same_pp and not (same_op and same_oc):
+        fail("(a, c) the step is deterministic, and an orbax resume is not bit-equal to the "
+             "port-format one")
+    if not same_pp and (max(l_op, l_oc) > 2 * l_pp or max(w_op, w_oc) > 2 * w_pp):
+        fail("(a, c) an orbax resume lies outside twice the spread of two port-format resumes")
+
+    # (b) the test phase from the orbax best directory and from the port's format
+    fx_test, test_dir, argv_test = test_run
+    subs = {}
+    for label, ckpt in (("b_test_orbax", best), ("b_test_port", port_best)):
+        run_dir, _, k1, _ = resumed_run(cli, base, label, argv_test,
+                                        {"best_model_smoke.ckpt": ckpt}, test_dir, names,
+                                        shear_kernels, crop_normalize)
+        n_batches = math.ceil(len(fx_test["test_rows"]) / B)
+        if k1 != n_batches:
+            fail(f"{label}: K1 launched {k1} times for {n_batches} test batches")
+        sub = os.path.join(run_dir, "submission_smoke.csv")
+        check_submission(sub, fx_test)
+        with open(sub, "rb") as f:
+            subs[label] = f.read()
+    print(f"(b) test phase from the orbax best directory and from the port's format: "
+          f"submissions byte-equal {subs['b_test_orbax'] == subs['b_test_port']}")
+    if subs["b_test_orbax"] != subs["b_test_port"] or is_port_format(best):
+        fail("(b) the orbax best checkpoint predicts otherwise than its port-format copy")
+    weights = load_checkpoint(best)
+    differ = [k for k, v in load_checkpoint(port_best).items() if not torch.equal(weights[k], v)]
+    if differ:
+        fail(f"(b) {differ[:3]} differ between the orbax best and its port-format copy")
+
+    # (d) the save and the load of the full ResNet-50 rolling payload
+    from rxtpu_torch.models.convert import from_flax
+    from rxtpu_torch.train.checkpoint import rxtpu_payload
+    from rxtpu_torch.train.optim import make_optimizer, sgd_state_from_trace
+
+    payload = trees[last]
+    n_bytes = sum(a.nbytes for a in _leaves(payload))
+    timing = os.path.join(base, "d_timing")
+    os.makedirs(timing)
+    path, port = os.path.join(timing, "last_smoke.ckpt"), os.path.join(timing, "port.ckpt")
+    meta = {k: saved_last[k] for k in ("step", "epoch", "best_metric",
+                                       "epochs_without_improvement")}
+    opt = sgd_state_from_trace(make_optimizer(net.parameters()), names, saved_last["trace"])
+    ops = {  # the loop's calls, then their parts: the layout change and the orbax layer
+        "orbax save_checkpoint": lambda: save_checkpoint(
+            path, saved_last["state_dict"], backend="orbax", momentum=saved_last["trace"],
+            **meta),
+        "orbax load_train_state": lambda: load_train_state(path),
+        "to_flax (rxtpu_payload)": lambda: rxtpu_payload(
+            saved_last["state_dict"], saved_last["trace"], **meta),
+        "from_flax": lambda: (from_flax(payload["params"], payload["batch_stats"]),
+                              from_flax(payload["opt_state"][0]["trace"])),
+        "save_checkpoint_orbax": lambda: save_checkpoint_orbax(path, payload),
+        "load_checkpoint_orbax": lambda: load_checkpoint_orbax(path),
+        "port save_checkpoint": lambda: save_checkpoint(port, saved_last["state_dict"],
+                                                        optimizer=opt, **meta),
+        "port load_train_state": lambda: load_train_state(port),
+    }
+    t = {k: [] for k in ops}
+    for _ in range(3):
+        for name, op in ops.items():
+            t0 = time.perf_counter()
+            out = op()
+            t[name].append(time.perf_counter() - t0)
+            if name == "load_checkpoint_orbax":
+                back = out
+    size, files = dir_files(path)
+    got, want = _leaves(back), _leaves(payload)
+    if len(got) != len(want) or any(not np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("(d) the timed round trip changed the payload")
+    print(f"(d) ResNet-50 rolling payload ({n_bytes / 1e6:.1f} MB of arrays; the orbax "
+          f"directory {size / 1e6:.1f} MB in {files} files, the port's file "
+          f"{os.path.getsize(port) / 1e6:.1f} MB), host clock, warm file cache, 3 runs (s): "
+          + "; ".join(f"{k} {' '.join(f'{v:.3f}' for v in vs)}" for k, vs in t.items())
+          + f"; {card}")
+    print(f"phase 3f in {time.perf_counter() - t_start:.1f} s")
+
+
+def _leaves(tree):
+    """The arrays of an orbax tree in order (dicts by key order)."""
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    if isinstance(tree, list):
+        return [a for v in tree for a in _leaves(v)]
+    return [] if tree is None else [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -3762,7 +4085,7 @@ def main() -> int:
         int8_timings(dev, *int8_forward_phase(dev, net, batch)[:3], batch, card)
         print(card)
         return 0
-    if "--resume" in sys.argv[1:]:  # only a 1-epoch phase 3, 3d and greedy_jax's timing
+    if "--resume" in sys.argv[1:]:  # only a 1-epoch phase 3, 3d, 3f and greedy_jax's timing
         from rxtpu_torch import cli
         from rxtpu_torch.data.synthetic import make_test_fixture, make_train_fixture
 
@@ -3790,6 +4113,11 @@ def main() -> int:
         phase("3d --resume from an rxtpu-layout pickle, --profile, greedy_jax")
         resume_profile_phase(dev, cli, train_dir, argv, 64 // B, shear_kernels,
                              crop_normalize, test_run=(fx_test, test_dir, argv_test))
+        phase("3f --checkpoint-backend orbax: rxtpu's OCDBT checkpoint read on this host; "
+              "train, resume (also from <path>.old) and test against the port's format; save "
+              "and load times")
+        orbax_phase(dev, cli, train_dir, argv, 64 // B, shear_kernels, crop_normalize, card,
+                    test_run=(fx_test, test_dir, argv_test))
         phase("7 timing of greedy_jax")
         greedy_jax_timings(dev, card)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -4131,6 +4459,13 @@ def main() -> int:
           "world-2 f32 step over gloo on the one card, plain, with --model-parallel 2 and "
           "fused; the gradient all-reduce's cost at world 1")
     dist_phase(dev, train_argv, train_dir, card)
+
+    # ---- 3f. --checkpoint-backend orbax -----------------------------------------
+    phase("3f --checkpoint-backend orbax: rxtpu's OCDBT checkpoint read on this host; train, "
+          "resume (also from <path>.old) and test against the port's format; save and load "
+          "times")
+    orbax_phase(dev, cli, train_dir, train_argv, 64 // B, shear_kernels, crop_normalize, card,
+                test_run=(fx, test_dir, argv))
 
     # ---- 4b. the K5 path at full width ----------------------------------------
     phase("4b K5 path at full width: EvalStep / Predictor(fused_stem=True) on the trained "

@@ -22,17 +22,17 @@ line works for both:
    preloaded, decoded per batch by 4 threads: JPEGs on the run's device,
    PNGs on the host), and the epoch loop with validation, best and rolling
    checkpoints (``rxtpu_torch.train.loop``; ``--resume`` continues from the
-   port's rolling checkpoint or from rxtpu's pickle, optax state included),
-   under a ``torch.profiler`` trace into ``board/{id}/profile`` with
-   ``--profile``;
-4. the test phase on the best checkpoint (an rxtpu pickle or the port's own
-   format): plate groups from ``train.csv``, predict each test experiment
-   through ``{pack}/test.rxpack`` or its own image store with the BN-folded
-   model (DenseNet-121 and the ArcFace head unfolded, on their running
-   statistics), or, with ``--quantize int8``, the W8A8 int8 model (ResNet or
-   DenseNet-121 with the MLP head), calibrated once on the first
-   experiment's opening ``--calib-batches`` batches; mask by plate, assign
-   one class per row (``--assign-method greedy_jax`` on the run's device)
+   port's rolling checkpoint or from rxtpu's pickle or orbax directory,
+   optax state included), under a ``torch.profiler`` trace into
+   ``board/{id}/profile`` with ``--profile``;
+4. the test phase on the best checkpoint (an rxtpu pickle or orbax
+   directory, or the port's own format): plate groups from ``train.csv``,
+   predict each test experiment through ``{pack}/test.rxpack`` or its own
+   image store with the BN-folded model (DenseNet-121 and the ArcFace head
+   unfolded, on their running statistics), or, with ``--quantize int8``,
+   the W8A8 int8 model (ResNet or DenseNet-121 with the MLP head),
+   calibrated once on the first experiment's opening ``--calib-batches``
+   batches; mask by plate, assign one class per row (``--assign-method greedy_jax`` on the run's device)
    and write ``submission_{id}.csv``. ``--predict-scan-window K`` > 1 (one
    process, not local mode) predicts windows of K batches, one CUDA graph
    replay per window, with one step built once (for int8 after the
@@ -58,8 +58,10 @@ the probabilities in row order, calibrates int8 on every rank's slices
 (max-reduced), and rank 0 writes the submission. ``--profile`` writes one
 trace per rank, named by rank.
 
-``--checkpoint-backend orbax`` is not ported: it exits with a message that
-names it.
+``--checkpoint-backend orbax`` writes the best and rolling checkpoints as
+orbax directories at the same paths (rxtpu's payload, orbax's plain zarr v2
+layout, no orbax needed), and ``--resume`` and the test phase read rxtpu's
+orbax directories, OCDBT or plain (``rxtpu_torch.train.checkpoint``).
 
     python -m rxtpu_torch.cli [--data-dir data] [--pack DIR] --experiment_id ID [--device cuda]
 """
@@ -141,13 +143,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _not_ported(args) -> Optional[str]:
-    """The first flag of argv whose path is not ported yet, if any."""
-    if args.checkpoint_backend != "pickle":
-        return f"--checkpoint-backend {args.checkpoint_backend}"
-    return None
-
-
 def resolve_config(args) -> Config:
     """rxtpu's config resolution (``rxtpu/cli.py:116-188``); rxtpu's local
     mode, ``--debug`` on a CPU backend, is ``--debug`` with ``--device cpu``."""
@@ -183,6 +178,7 @@ def resolve_config(args) -> Config:
         cfg.train.scheduler = False
     if args.split_by_experiment:
         cfg.train.train_split_by_experiment = True
+    cfg.train.checkpoint_backend = args.checkpoint_backend
     cfg.train.checkpoint_every_steps = args.checkpoint_every_steps
     if args.batch_size is not None:
         cfg.train.bs_per_device = args.batch_size
@@ -382,9 +378,6 @@ def start_ranks(args):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_argparser().parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise SystemExit(f"{missing} is not ported to rxtpu_torch yet")
     mesh = start_ranks(args)
     try:
         return run(args, mesh)

@@ -8,7 +8,9 @@
 // port never reads a file of the JAX package, plus a PNG reader: a PNG
 // file's pixel data is a zlib stream of rows, each led by one filter byte
 // (none, sub, up, avg, paeth), which is exactly the pack's "png" filter for
-// 8-bit gray (one byte per pixel, so the predictor looks one byte back).
+// 8-bit gray (one byte per pixel, so the predictor looks one byte back),
+// and streams of any sizes each (rxtpu_inflate_each, rxtpu_compress_each:
+// the chunks of an orbax checkpoint and the nodes of its OCDBT store).
 //
 // zlib and zstd are not linked: the few functions used here have plain C
 // signatures, declared below, and are bound at first use by dlopen of
@@ -488,6 +490,48 @@ int rxtpu_png_size(const uint8_t* data, int64_t len, int* height, int* width) {
   *width = static_cast<int>(be32(data + 16));
   *height = static_cast<int>(be32(data + 20));
   return 0;
+}
+
+// Decompress n streams of any sizes: srcs[i] (src_lengths[i] bytes) into
+// dsts[i] (dst_caps[i] bytes); out_lengths[i] gets the decompressed size,
+// or -1 when the stream is corrupt or does not fit. Returns the failure
+// count, or -1 if the codec is not loaded.
+int rxtpu_inflate_each(const uint8_t* const* srcs, const int64_t* src_lengths, int n,
+                       uint8_t* const* dsts, const int64_t* dst_caps, int64_t* out_lengths,
+                       int codec, int nthreads) {
+  if (!codec_ready(codec)) return -1;
+  return run_pool(n, nthreads, [&](int i, Scratch&) {
+    const size_t cap = static_cast<size_t>(dst_caps[i]);
+    const size_t len = static_cast<size_t>(src_lengths[i]);
+    bool ok;
+    size_t got;
+    if (codec == 1) {  // zstd tells an empty result from an error
+      got = zstd_decompress(dsts[i], cap, srcs[i], len);
+      ok = !zstd_is_error(got);
+    } else {
+      unsigned long dst_len = static_cast<unsigned long>(cap);
+      ok = z_uncompress(dsts[i], &dst_len, srcs[i], static_cast<unsigned long>(len)) == 0;
+      got = static_cast<size_t>(dst_len);
+    }
+    out_lengths[i] = ok ? static_cast<int64_t>(got) : -1;
+    return ok;
+  });
+}
+
+// Compress n buffers of any sizes at `level`: srcs[i] (src_lengths[i]
+// bytes) into dsts[i] (dst_caps[i] bytes); out_lengths[i] gets the
+// compressed size (0 on failure). Returns the failure count, or -1 if the
+// codec is not loaded.
+int rxtpu_compress_each(const uint8_t* const* srcs, const int64_t* src_lengths, int n,
+                        uint8_t* const* dsts, const int64_t* dst_caps,
+                        int64_t* out_lengths, int level, int codec, int nthreads) {
+  if (!codec_ready(codec)) return -1;
+  return run_pool(n, nthreads, [&](int i, Scratch&) {
+    size_t got = compress_any(codec, dsts[i], static_cast<size_t>(dst_caps[i]), srcs[i],
+                              static_cast<size_t>(src_lengths[i]), level);
+    out_lengths[i] = static_cast<int64_t>(got);
+    return got != 0;
+  });
 }
 
 }  // extern "C"

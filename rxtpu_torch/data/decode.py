@@ -108,9 +108,12 @@ def _inflate_lib() -> ctypes.CDLL:
     lib.rxtpu_png_decode_batch.argtypes = [_P, _P, _P, _I, _P, _I, _I, _I, _P]
     lib.rxtpu_png_decode_files.argtypes = [ctypes.c_char_p, _P, _I, _P, _I, _I, _I, _P]
     lib.rxtpu_png_size.argtypes = [_P, _L, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rxtpu_inflate_each.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I]
+    lib.rxtpu_compress_each.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I]
     for fn in (lib.rxtpu_codec_load, lib.rxtpu_inflate_batch,
                lib.rxtpu_deflate_filtered_batch, lib.rxtpu_inflate_unfilter_batch,
-               lib.rxtpu_png_decode_batch, lib.rxtpu_png_decode_files, lib.rxtpu_png_size):
+               lib.rxtpu_png_decode_batch, lib.rxtpu_png_decode_files, lib.rxtpu_png_size,
+               lib.rxtpu_inflate_each, lib.rxtpu_compress_each):
         fn.restype = _I
     return lib
 
@@ -504,6 +507,59 @@ def inflate_unfilter_batch(data: np.ndarray, offsets, lengths, c: int, h: int, w
     if strict and failures:
         raise ValueError(f"{failures}/{n} records failed to decompress")
     return out
+
+
+def _addresses(arrays: Sequence[np.ndarray]) -> np.ndarray:
+    return np.array([a.ctypes.data for a in arrays], dtype=np.uintp)
+
+
+def inflate_each(streams: Sequence, sizes: Sequence[int], nthreads: int = 0,
+                 exact: bool = True) -> List[np.ndarray]:
+    """Decompress zstd streams of any sizes (bytes-like each) to uint8
+    arrays, in the pool. Each must come to exactly its ``sizes`` bytes; with
+    ``exact=False`` the sizes are capacities and each array is cut to its
+    stream's size. Raises if a stream is corrupt or does not fit."""
+    lib, cid = load_codec("zstd")
+    src = [np.frombuffer(b, dtype=np.uint8) for b in streams]
+    out = [np.empty(int(n), dtype=np.uint8) for n in sizes]
+    if len(src) != len(out):
+        raise ValueError(f"{len(src)} streams for {len(out)} sizes")
+    if not src:
+        return out
+    src_lengths = np.array([a.size for a in src], dtype=np.int64)
+    caps = np.array([a.size for a in out], dtype=np.int64)
+    got = np.zeros(len(src), dtype=np.int64)
+    src_at, out_at = _addresses(src), _addresses(out)  # held alive across the call
+    failures = lib.rxtpu_inflate_each(src_at.ctypes.data, src_lengths.ctypes.data, len(src),
+                                      out_at.ctypes.data, caps.ctypes.data, got.ctypes.data,
+                                      cid, nthreads)
+    short = int((got != caps).sum()) if exact else 0
+    if failures or short:
+        raise ValueError(f"{max(failures, short)}/{len(src)} zstd streams failed to "
+                         "decompress " + ("to their sizes" if exact else "within their caps"))
+    return out if exact else [a[:n] for a, n in zip(out, got)]
+
+
+def compress_each(buffers: Sequence, level: int = 1, nthreads: int = 0) -> List[bytes]:
+    """Compress buffers of any sizes (bytes-like, or arrays read as their
+    bytes in C order) with zstd at ``level``, one stream each, in the pool;
+    raises on any failed compress."""
+    lib, cid = load_codec("zstd")
+    src = [np.frombuffer(b, dtype=np.uint8) if not isinstance(b, np.ndarray)
+           else np.ascontiguousarray(b.reshape(-1)).view(np.uint8) for b in buffers]
+    if not src:
+        return []
+    src_lengths = np.array([a.size for a in src], dtype=np.int64)
+    caps = src_lengths + src_lengths // 128 + 1024  # above zstd's compress bound
+    out = [np.empty(int(c), dtype=np.uint8) for c in caps]
+    out_lengths = np.zeros(len(src), dtype=np.int64)
+    src_at, out_at = _addresses(src), _addresses(out)  # held alive across the call
+    failures = lib.rxtpu_compress_each(src_at.ctypes.data, src_lengths.ctypes.data, len(src),
+                                       out_at.ctypes.data, caps.ctypes.data,
+                                       out_lengths.ctypes.data, level, cid, nthreads)
+    if failures:
+        raise ValueError(f"{failures}/{len(src)} buffers failed to compress")
+    return [o[:n].tobytes() for o, n in zip(out, out_lengths)]
 
 
 # ---- plain versions, for the tests -------------------------------------------

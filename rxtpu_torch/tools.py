@@ -34,6 +34,7 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from rxtpu_torch.config import resolve_device
 from rxtpu_torch.data.decode import decode_files, encode_batch_jpeg, image_size, png_size
 from rxtpu_torch.data.stats import (
     NB_CHANNELS, channel_from_path, compute_stats_streaming, save_stats, verify_stats,
@@ -87,9 +88,10 @@ def _stats_batches(data_dir: str, experiments: Sequence[str], ext: str, size: in
 
 
 def run_stats(data_dir: str, out_path: str, ext: str = "jpeg", batch: int = 256,
-              verify: bool = False, nthreads: int = 0, device="cpu") -> Dict:
+              verify: bool = False, nthreads: int = 0, device="cuda") -> Dict:
     """Compute the stats artifact of ``data_dir``'s JPEG or PNG tree, write it
-    to ``out_path`` (JSON) and return it."""
+    to ``out_path`` (JSON) and return it; on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     experiments = list_experiments(data_dir)
     if not experiments:
         raise SystemExit(f"no experiments found under {data_dir}/{{train,test}}/")
@@ -120,12 +122,13 @@ def run_stats(data_dir: str, out_path: str, ext: str = "jpeg", batch: int = 256,
 
 
 def run_png2jpeg(data_dir: str, quality: int = 95, batch: int = 256, nthreads: int = 0,
-                 device="cpu") -> int:
+                 device="cuda") -> int:
     """Write a grayscale JPEG at ``quality`` beside every ``.png`` under
     ``data_dir`` (rxtpu's bytes on the CPU); returns the number converted.
     Every PNG must have the first one's size: a stray PNG of another size
     under the data dir stops the run, naming it, before its batch is
-    written."""
+    written. Decodes on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     paths = sorted(glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True))
     n_done = 0
     expect = None
@@ -147,7 +150,7 @@ def run_png2jpeg(data_dir: str, quality: int = 95, batch: int = 256, nthreads: i
         except ValueError:
             for p in chunk:  # name the first file that does not decode
                 try:
-                    decode_files([p], *expect, nthreads=1, strict=True)
+                    decode_files([p], *expect, nthreads=1, strict=True, device=device)
                 except ValueError as e:
                     raise SystemExit(f"png2jpeg: cannot read {p}: {e}") from None
             raise
@@ -162,7 +165,7 @@ def run_png2jpeg(data_dir: str, quality: int = 95, batch: int = 256, nthreads: i
 
 def run_iobench(data_dir: str, ext: str = "jpeg", batch: int = 288, nthreads: int = 0,
                 seconds: float = 5.0, train_views_per_s: float = H100_TRAIN_VIEWS_PER_S,
-                device="cpu") -> Dict:
+                device="cuda") -> Dict:
     """The decode rate of the first experiments' files (at least ``batch``
     x 4 of them), ``batch`` files per call for ``seconds`` after one warm-up
     call, on ``device``.
@@ -180,7 +183,7 @@ def run_iobench(data_dir: str, ext: str = "jpeg", batch: int = 288, nthreads: in
             break
     if not paths:
         raise SystemExit(f"no .{ext} files under {data_dir}")
-    device = torch.device(device)
+    device = resolve_device(device)
     size = _probe_size(paths[0], device)
 
     def decode(chunk):
@@ -253,8 +256,6 @@ def main(argv=None) -> None:
     for p in (sp, pk, ib, cp):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    from rxtpu_torch.config import resolve_device
-
     device = resolve_device(args.device)
     if args.cmd == "stats":
         run_stats(args.data, args.out, args.ext, args.batch, args.verify, args.threads, device)

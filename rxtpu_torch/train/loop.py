@@ -10,9 +10,11 @@
 - a rolling full-state checkpoint ``models/last_{id}.ckpt`` every
   ``checkpoint_every_steps`` steps inside an epoch and after every epoch;
   ``resume`` continues from it, mid-epoch included, replaying the epoch's
-  deterministic batch stream from ``batch_in_epoch``. An rxtpu pickle
-  resumes too: its nesterov trace becomes the SGD momentum, and its best
-  checkpoint stays as it is until a better one is written;
+  deterministic batch stream from ``batch_in_epoch``. An rxtpu pickle or
+  orbax directory resumes too: its nesterov trace becomes the SGD momentum,
+  and its best checkpoint stays as it is until a better one is written.
+  With ``checkpoint_backend="orbax"`` both checkpoints are orbax directories
+  holding rxtpu's payload (the momentum as optax's trace), at the same paths;
 - early stopping on val accuracy with patience, where a tie is not an
   improvement;
 - a per-epoch progress bar on stderr when it is a tty (``progress_bar``),
@@ -47,7 +49,9 @@ from rxtpu_torch.train.checkpoint import (
     BestCheckpointer, checkpoint_exists, load_train_state, save_checkpoint,
 )
 from rxtpu_torch.train.metrics import MetricLogger, StepTimer
-from rxtpu_torch.train.optim import backbone_trainable_at_epoch, sgd_state_from_trace
+from rxtpu_torch.train.optim import (
+    backbone_trainable_at_epoch, sgd_state_from_trace, trace_from_sgd_state,
+)
 from rxtpu_torch.train.step import EvalStep, TrainState, make_train_step
 
 
@@ -151,7 +155,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
     train_step = make_train_step(state.model, crop, augment=cfg.train.augment_backend,
                                  compute_dtype=dtype, mesh=mesh)
     writer = mesh is None or mesh.rank == 0
-    ckpt = BestCheckpointer(cfg.checkpoint_path, write=writer)
+    backend = cfg.train.checkpoint_backend
+    ckpt = BestCheckpointer(cfg.checkpoint_path, write=writer, backend=backend)
     timer = StepTimer()
     history = []
     start_epoch, start_batch = 1, 0
@@ -161,13 +166,13 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
         logger = MetricLogger(cfg.train.board_dir, cfg.experiment_id) if writer else _NoLogger()
 
     last_path = last_checkpoint_path(cfg)
+    names = [n for n, _ in state.model.named_parameters()]
     if resume and checkpoint_exists(last_path):
         saved = load_train_state(last_path)
         state.model.load_state_dict(saved["state_dict"])
         if "optimizer" in saved:
             state.optimizer.load_state_dict(saved["optimizer"])
-        else:  # an rxtpu pickle: optax's trace is the momentum buffer
-            names = [n for n, _ in state.model.named_parameters()]
+        else:  # an rxtpu pickle or orbax directory: optax's trace is the momentum buffer
             state.optimizer.load_state_dict(
                 sgd_state_from_trace(state.optimizer, names, saved["trace"]))
         state.step = int(saved["step"])
@@ -184,14 +189,17 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
     place_state(state, mesh)
 
     def payload(**meta) -> Dict:
-        return {"state_dict": whole_state_dict(state.model, mesh),
-                "optimizer": whole_optimizer_state(state.optimizer, state.model, mesh),
-                "step": state.step, **meta}
+        state_dict = whole_state_dict(state.model, mesh)
+        opt = whole_optimizer_state(state.optimizer, state.model, mesh)
+        if backend == "orbax":  # rxtpu's payload: the momentum as optax's trace
+            return {"state_dict": state_dict, "step": state.step, **meta,
+                    "momentum": trace_from_sgd_state(opt, names, state_dict)}
+        return {"state_dict": state_dict, "optimizer": opt, "step": state.step, **meta}
 
     def save_last(**meta) -> None:
         p = payload(**meta)
         if writer:
-            save_checkpoint(last_path, **p)
+            save_checkpoint(last_path, backend=backend, **p)
         barrier()
 
     def validate(epoch: int) -> Dict[str, float]:

@@ -5,7 +5,8 @@
   (``trace = g + m*trace``, ``update = -lr * (g + m*trace)``), which
   ``tests/test_torch_port_train.py`` holds against optax. So torch's
   ``momentum_buffer`` is optax's trace, and ``sgd_state_from_trace`` loads
-  an rxtpu trace (by parameter name) as the optimizer's state.
+  an rxtpu trace (by parameter name) as the optimizer's state
+  (``trace_from_sgd_state`` reads it back out).
 - The coupled weight decay is added to the gradient here, under the freeze
   mask: where a parameter is frozen its optimizer input is exactly zero, so
   its momentum buffer stays zero and its update is zero (torch skips params
@@ -70,6 +71,22 @@ def sgd_state_from_trace(optimizer: torch.optim.SGD, names: Sequence[str],
         raise ValueError(f"{len(names)} names for the optimizer's {len(order)} parameters")
     return {"state": {i: {"momentum_buffer": trace[n]} for i, n in zip(order, names)},
             "param_groups": current["param_groups"]}
+
+
+def trace_from_sgd_state(state: Mapping, names: Sequence[str],
+                         params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``sgd_state_from_trace``'s inverse: from an SGD ``state_dict`` over
+    the parameters that ``names`` name, in order, each one's momentum buffer
+    by name as optax's trace; zeros (of ``params[name]``) where the optimizer
+    has no buffer yet, as optax's trace starts."""
+    order = [i for group in state["param_groups"] for i in group["params"]]
+    if len(order) != len(names):
+        raise ValueError(f"{len(names)} names for the optimizer's {len(order)} parameters")
+    trace = {}
+    for i, n in zip(order, names):
+        buf = state["state"].get(i, {}).get("momentum_buffer")
+        trace[n] = torch.zeros_like(params[n]) if buf is None else buf
+    return trace
 
 
 @torch.no_grad()

@@ -253,7 +253,8 @@ def test_stats_streaming_bit_equal_to_rxtpu(synthetic_root):
 def test_run_stats_writes_rxtpu_json(synthetic_root, tmp_path, capsys):
     root, _ = synthetic_root
     rx_run_stats(root, str(tmp_path / "rx.json"), batch=50)
-    port_tools.run_stats(root, str(tmp_path / "port.json"), batch=50, nthreads=2)
+    port_tools.run_stats(root, str(tmp_path / "port.json"), batch=50, nthreads=2,
+                         device="cpu")
     port_tools.main(["stats", "--data", root, "--out", str(tmp_path / "main.json"),
                      "--device", "cpu", "--verify"])
     want = (tmp_path / "rx.json").read_bytes()
@@ -303,15 +304,18 @@ def test_jpeg_tree_pipeline_equals_pack_of_its_planes(tmp_path):
 
 def test_cli_refuses_png_without_pack():
     """The CLI refuses no image source: PNG input runs with and without
-    ``--pack`` (the PNG reader, ``tests/test_torch_port_png_pack.py``)."""
+    ``--pack`` (the PNG reader, ``tests/test_torch_port_png_pack.py``), and
+    no flag of rxtpu's is refused (multi-GPU and ``--checkpoint-backend
+    orbax`` included)."""
     parse = port_cli.build_argparser().parse_args
     for argv in (["--image-ext", "png"], ["--image-ext", "png", "--pack", "packs"], []):
-        assert port_cli._not_ported(parse(argv + ["--device", "cpu"])) is None
-    assert port_cli._not_ported(parse(["--profile", "--image-ext", "png"])) is None
-    # multi-GPU is ported: only --checkpoint-backend orbax is refused
-    assert port_cli._not_ported(parse(["--distributed", "--image-ext", "png"])) is None
-    assert port_cli._not_ported(parse(["--distributed", "--model-parallel", "2"])) is None
-    assert "orbax" in port_cli._not_ported(parse(["--checkpoint-backend", "orbax"]))
+        cfg = port_cli.resolve_config(parse(argv + ["--device", "cpu"]))
+        assert cfg.data.image_ext == (argv[1] if argv else "jpeg")
+    for argv in (["--profile", "--image-ext", "png"], ["--distributed", "--image-ext", "png"],
+                 ["--distributed", "--model-parallel", "2"]):
+        port_cli.resolve_config(parse(argv))
+    cfg = port_cli.resolve_config(parse(["--checkpoint-backend", "orbax"]))
+    assert cfg.train.checkpoint_backend == "orbax"
 
 
 def test_nvjpeg_reference_is_rxtpu_decode():

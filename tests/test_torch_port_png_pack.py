@@ -499,17 +499,17 @@ def test_run_png2jpeg_bytes_equal_rxtpu(png_root, tmp_path):
     for out in (rx_dir, port_dir):
         shutil.copytree(os.path.join(png_root, "train"), out / "train")
     n = rx_run_png2jpeg(str(rx_dir), batch=50)
-    assert port_tools.run_png2jpeg(str(port_dir), batch=37, nthreads=2) == n > 100
+    assert port_tools.run_png2jpeg(str(port_dir), batch=37, nthreads=2, device="cpu") == n > 100
     for p in sorted(glob.glob(str(rx_dir / "**" / "*.jpeg"), recursive=True)):
         with open(p, "rb") as a, open(port_dir / os.path.relpath(p, rx_dir), "rb") as b:
             assert b.read() == a.read(), p
     stray = port_dir / "train" / "zz_stray.png"
     stray.write_bytes(cv2.imencode(".png", np.zeros((8, 9), np.uint8))[1].tobytes())
     with pytest.raises(SystemExit, match=r"zz_stray.png has size \(8, 9\), expected \(64, 64\)"):
-        port_tools.run_png2jpeg(str(port_dir))
+        port_tools.run_png2jpeg(str(port_dir), device="cpu")
     stray.write_bytes(b"\x89PNG")
     with pytest.raises(SystemExit, match="png2jpeg: cannot read .*zz_stray.png"):
-        port_tools.run_png2jpeg(str(port_dir))
+        port_tools.run_png2jpeg(str(port_dir), device="cpu")
     good = sorted(glob.glob(str(port_dir / "**" / "*.png"), recursive=True))[0]
     stray.write_bytes(open(good, "rb").read()[:-30])
     with pytest.raises(SystemExit, match="png2jpeg: cannot read .*zz_stray.png"):
@@ -522,7 +522,8 @@ def test_tools_stats_and_iobench_on_png(png_root, tmp_path, capsys):
                      str(tmp_path / "port.json"), "--batch", "50", "--device", "cpu"])
     assert (tmp_path / "port.json").read_bytes() == (tmp_path / "rx.json").read_bytes()
     want = rx_run_iobench(png_root, ext="png", batch=16, seconds=0.05)
-    got = port_tools.run_iobench(png_root, ext="png", batch=16, nthreads=2, seconds=0.05)
+    got = port_tools.run_iobench(png_root, ext="png", batch=16, nthreads=2, seconds=0.05,
+                               device="cpu")
     assert set(want) <= set(got)
     assert got["image_size"] == SRC and got["threads"] == 2 and got["device"] == "cpu"
     assert got["train_views_per_s"] == port_tools.H100_TRAIN_VIEWS_PER_S == 395.9

@@ -209,7 +209,7 @@ def test_rxtpu_pickle_checkpoint_loads_without_jax_classes(tmp_path):
 _IMPORT_ALL = """
 import sys, importlib, importlib.util, pkgutil
 for name in ("jax", "jaxlib", "flax", "optax", "pandas", "sklearn", "tensorboardX",
-             "rxtpu", "cv2", "PIL"):
+             "rxtpu", "cv2", "PIL", "orbax", "tensorstore", "zarr", "numcodecs"):
     sys.modules[name] = None
 import rxtpu_torch
 mods = [m.name for m in pkgutil.walk_packages(rxtpu_torch.__path__, "rxtpu_torch.")]
@@ -221,7 +221,8 @@ assert {"rxtpu_torch.tools", "rxtpu_torch.data.decode", "rxtpu_torch.ops.int8_co
         "rxtpu_torch.utils", "rxtpu_torch.utils.profiling", "rxtpu_torch.parallel",
         "rxtpu_torch.parallel.mesh", "rxtpu_torch.parallel.dp",
         "rxtpu_torch.parallel.multihost", "rxtpu_torch.analysis", "rxtpu_torch.entry",
-        "rxtpu_torch.ops.batchnorm", "rxtpu_torch.ops.maxpool"} <= set(mods), mods
+        "rxtpu_torch.ops.batchnorm", "rxtpu_torch.ops.maxpool",
+        "rxtpu_torch.train.ocdbt"} <= set(mods), mods
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len(mods))
