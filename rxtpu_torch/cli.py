@@ -24,7 +24,8 @@ line works for both:
    checkpoints (``rxtpu_torch.train.loop``; ``--resume`` continues from the
    port's rolling checkpoint or from rxtpu's pickle or orbax directory,
    optax state included), under a ``torch.profiler`` trace into
-   ``board/{id}/profile`` with ``--profile``;
+   ``board/{id}/profile`` with ``--profile`` (``spans.jsonl`` of the port's
+   host spans beside it, each epoch's span seconds in ``metrics.jsonl``);
 4. the test phase on the best checkpoint (an rxtpu pickle or orbax
    directory, or the port's own format): plate groups from ``train.csv``,
    predict each test experiment through ``{pack}/test.rxpack`` or its own
@@ -36,7 +37,10 @@ line works for both:
    and write ``submission_{id}.csv``. ``--predict-scan-window K`` > 1 (one
    process, not local mode) predicts windows of K batches, one CUDA graph
    replay per window, with one step built once (for int8 after the
-   calibration) and shared by every experiment (``rxtpu/cli.py:488-570``).
+   calibration) and shared by every experiment (``rxtpu/cli.py:488-570``);
+   with ``--profile``, under a trace into ``board/{id}/profile/predict``
+   with its ``spans.jsonl`` (each batch's or window's ``predict.step`` and
+   ``predict.readback`` beside the feed's spans).
 
 Multi-GPU (rxtpu's ``--distributed`` and ``--model-parallel M``): one
 process per GPU, launched by ``torchrun --nproc-per-node N -m
@@ -56,7 +60,7 @@ each data rank decodes its rows of every batch (``world / M`` data ranks of
 the whole head (K1, or K8 under ``--quantize int8``, on every rank), gathers
 the probabilities in row order, calibrates int8 on every rank's slices
 (max-reduced), and rank 0 writes the submission. ``--profile`` writes one
-trace per rank, named by rank.
+trace and one spans file per rank, named by rank.
 
 ``--checkpoint-backend orbax`` writes the best and rolling checkpoints as
 orbax directories at the same paths (rxtpu's payload, orbax's plain zarr v2
@@ -137,7 +141,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--nb-classes", type=int, default=None)
     p.add_argument("--checkpoint-every-steps", type=int, default=None)
     p.add_argument("--checkpoint-backend", default="pickle", choices=["pickle", "orbax"])
-    p.add_argument("--profile", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="trace training with torch.profiler into board/{experiment_id}/profile "
+                        "and the test phase into board/{experiment_id}/profile/predict, each "
+                        "with spans.jsonl beside it (the port's host spans: pipeline.assemble, "
+                        "pipeline.wait, prefetch.stage, train.input, train.step, "
+                        "train.readback, train.validate, train.checkpoint; predict.step, "
+                        "predict.readback), and each epoch's span seconds and counters "
+                        "(perf/queue_wait_s, perf/stage_s, perf/assemble_s, perf/readback_s, "
+                        "perf/staged_gib, perf/checkpoint_s, ...) on a perf line of "
+                        "metrics.jsonl after its rolling checkpoint")
     p.add_argument("--out-dir", default=".")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
@@ -402,6 +415,7 @@ def run(args, mesh) -> int:
     from rxtpu_torch.train.loop import last_checkpoint_path
     from rxtpu_torch.train.setup import build_model
     from rxtpu_torch.train.step import make_scanned_predict_step
+    from rxtpu_torch.utils.profiling import trace
 
     cfg = resolve_config(args)
     device = resolve_device(args.device)
@@ -500,26 +514,28 @@ def run(args, mesh) -> int:
     scan_step = None
 
     pred_by_id = {}
-    for i, experiment in enumerate(experiments):
-        idx_exp = idx_test_all.for_experiment(experiment)
-        pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
-                        src_size=src_size, decoder_threads=decoder_threads(cfg), device=device,
-                        num_hosts=world, host_id=rank)
-        if step is None:
-            step = quantized_step(model, pipe, args, dtype, device, group)
-        if use_scan and scan_step is None:
-            scan_step = make_scanned_predict_step(step, scan_window)
-        probs, ids = predict_dataset(step, pipe, device, group, scan_step=scan_step)
-        exp_rows = [r for r in test_rows if r["experiment"] == experiment]
-        if [r["id_code"] for r in exp_rows] != ids:
-            raise RuntimeError(f"prediction rows of {experiment} do not follow test.csv")
-        plates = np.asarray([r["plate"] for r in exp_rows])
-        if plate_groups is not None:
-            preds = constrained_predict(probs, plates, plate_groups, experiment_types[i],
-                                        method=args.assign_method, device=device)
-        else:
-            preds = rescale(probs).argmax(axis=1).astype(np.float64)
-        pred_by_id.update(zip(ids, preds))
+    with trace(os.path.join(cfg.train.board_dir, cfg.experiment_id, "profile", "predict"),
+               enabled=args.profile, worker_name=None if world == 1 else f"rank{rank}"):
+        for i, experiment in enumerate(experiments):
+            idx_exp = idx_test_all.for_experiment(experiment)
+            pipe = Pipeline(idx_exp, pack_store or _store(cfg, idx_exp, None), stats, global_bs,
+                            src_size=src_size, decoder_threads=decoder_threads(cfg),
+                            device=device, num_hosts=world, host_id=rank)
+            if step is None:
+                step = quantized_step(model, pipe, args, dtype, device, group)
+            if use_scan and scan_step is None:
+                scan_step = make_scanned_predict_step(step, scan_window)
+            probs, ids = predict_dataset(step, pipe, device, group, scan_step=scan_step)
+            exp_rows = [r for r in test_rows if r["experiment"] == experiment]
+            if [r["id_code"] for r in exp_rows] != ids:
+                raise RuntimeError(f"prediction rows of {experiment} do not follow test.csv")
+            plates = np.asarray([r["plate"] for r in exp_rows])
+            if plate_groups is not None:
+                preds = constrained_predict(probs, plates, plate_groups, experiment_types[i],
+                                            method=args.assign_method, device=device)
+            else:
+                preds = rescale(probs).argmax(axis=1).astype(np.float64)
+            pred_by_id.update(zip(ids, preds))
 
     id_codes = [r["id_code"] for r in test_rows]
     if rank == 0:  # the predictions are on every rank; one writes the file

@@ -52,6 +52,7 @@ from rxtpu_torch.data.pack import PackStore
 from rxtpu_torch.data.records import MetadataIndex, WellRecord, all_records, image_path
 from rxtpu_torch.data.stats import Stats, stats_table
 from rxtpu_torch.parallel.multihost import host_shard_bounds
+from rxtpu_torch.utils import spans
 
 
 class ByteStore:
@@ -235,25 +236,33 @@ class Pipeline:
         def producer():
             try:
                 for bi in range(start_batch, len(batches)):
-                    # row0 stays the absolute stream offset of the epoch
-                    if stop.is_set() or not put_or_stop(
-                            self._make_batch(batches[bi], epoch, bi * bs)):
+                    if stop.is_set():
                         return
-                put_or_stop(None)
+                    with spans.span("pipeline.assemble", batch=bi):
+                        # row0 stays the absolute stream offset of the epoch
+                        item = self._make_batch(batches[bi], epoch, bi * bs)
+                    if spans.ON:
+                        spans.count("pipeline.assembled_bytes", _array_bytes(item))
+                    if not put_or_stop(item):
+                        return
             except BaseException as e:  # surfaced to the consumer, re-raised there
                 put_or_stop(e)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="pipeline-producer", daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
-                if item is None:
-                    return
+            for bi in range(start_batch, len(batches)):
+                if spans.ON:
+                    spans.count("pipeline.gets")
+                    spans.count("pipeline.gets_empty", q.empty())
+                with spans.span("pipeline.wait", batch=bi):
+                    item = q.get()
                 if isinstance(item, BaseException):
                     raise item
+                spans.note_batch(bi)
                 yield item
         finally:
+            spans.note_batch(None)
             stop.set()
             t.join(timeout=10)
 
@@ -287,35 +296,54 @@ def device_prefetch(host_iter: Iterator[Dict[str, object]], device: torch.device
 
     def put(batch):
         out = {}
-        for k, v in batch.items():
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(v)
-                out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t
-            elif isinstance(v, torch.Tensor):
-                out[k] = v.to(device)
-            else:
-                out[k] = v
+        with spans.span("prefetch.stage"):
+            for k, v in batch.items():
+                if isinstance(v, np.ndarray):
+                    t = torch.from_numpy(v)
+                    out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t
+                elif isinstance(v, torch.Tensor):
+                    out[k] = v.to(device)
+                else:
+                    out[k] = v
+        if spans.ON:
+            spans.count("prefetch.staged_bytes", _array_bytes(batch, host_only=True))
         return out
 
     return double_buffer(host_iter, put)
 
 
-def stack_window(batches: List[Dict[str, object]], device: torch.device
-                 ) -> Dict[str, torch.Tensor]:
+def stack_window(batches: List[Dict[str, object]], device: torch.device,
+                 window: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The arrays of K batches stacked on a new leading axis on ``device``:
     numpy arrays into one pinned host buffer per key, then one
     ``non_blocking`` copy to the card (one plain tensor on the CPU); tensors
     already decoded onto the card stacked there. Non-array entries are
-    left out."""
+    left out. ``window`` (the window's index) is its ``prefetch.stage``
+    span's ``batch``."""
     cuda = torch.device(device).type == "cuda"
     out = {}
-    for k, v in batches[0].items():
-        if isinstance(v, np.ndarray):
-            buf = torch.empty((len(batches),) + v.shape, dtype=torch.from_numpy(v).dtype,
-                              pin_memory=cuda)
-            for i, b in enumerate(batches):
-                buf[i].copy_(torch.from_numpy(b[k]))
-            out[k] = buf.to(device, non_blocking=True) if cuda else buf
-        elif isinstance(v, torch.Tensor):
-            out[k] = torch.stack([b[k].to(device) for b in batches])
+    with spans.span("prefetch.stage", batch=window):
+        for k, v in batches[0].items():
+            if isinstance(v, np.ndarray):
+                buf = torch.empty((len(batches),) + v.shape, dtype=torch.from_numpy(v).dtype,
+                                  pin_memory=cuda)
+                for i, b in enumerate(batches):
+                    buf[i].copy_(torch.from_numpy(b[k]))
+                out[k] = buf.to(device, non_blocking=True) if cuda else buf
+            elif isinstance(v, torch.Tensor):
+                out[k] = torch.stack([b[k].to(device) for b in batches])
+    if spans.ON:
+        spans.count("prefetch.staged_bytes",
+                    sum(_array_bytes(b, host_only=True) for b in batches))
     return out
+
+
+def _array_bytes(batch: Dict[str, object], host_only: bool = False) -> int:
+    """Bytes of a batch's arrays: numpy arrays, and tensors unless ``host_only``."""
+    n = 0
+    for v in batch.values():
+        if isinstance(v, np.ndarray):
+            n += v.nbytes
+        elif isinstance(v, torch.Tensor) and not host_only:
+            n += v.numel() * v.element_size()
+    return n

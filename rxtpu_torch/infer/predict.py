@@ -40,6 +40,7 @@ from rxtpu_torch.data.pipeline import Pipeline, device_prefetch, double_buffer, 
 from rxtpu_torch.infer.fold import fold
 from rxtpu_torch.models.twosites import DummyClassifier, TwoSitesNN
 from rxtpu_torch.parallel.multihost import all_gather_objects, all_gather_rows, comm_device
+from rxtpu_torch.utils import spans
 
 if TYPE_CHECKING:  # train.step imports infer.fold: no import cycle at run time
     from rxtpu_torch.train.step import WindowStep
@@ -151,9 +152,13 @@ def predict_dataset(step: Callable, pipe: Pipeline, device: torch.device, group=
         def step(batch):
             return torch.softmax(dummy(batch["images"]), dim=-1)
     probs, ids = [], []
-    for batch in device_prefetch(host_batches, device):
+    for i, batch in enumerate(device_prefetch(host_batches, device)):
         ids.append(batch.pop("id_codes"))
-        probs.append(step(batch).cpu())  # a readback per batch bounds the work in flight
+        with spans.span("predict.step", batch=i):
+            out = step(batch)
+        with spans.span("predict.readback", batch=i):
+            probs.append(out.cpu())  # a readback per batch bounds the work in flight
+        del out  # the device output goes before the next step runs
     probs_t = torch.cat(probs)
     if group is not None:
         # [ranks * batches * rows] in rank order -> batch by batch, ranks within
@@ -191,27 +196,36 @@ def _predict_windows(scan_step: WindowStep, host_batches, device: torch.device
         if buf:
             yield buf
 
-    def put_window(bufs):
+    def put_window(item):
+        w, bufs = item
         ids = [b.pop("id_codes") for b in bufs]
         n_real = len(bufs)
-        return stack_window(bufs + [bufs[-1]] * (k - n_real), device), ids, n_real
+        return stack_window(bufs + [bufs[-1]] * (k - n_real), device, w), ids, n_real
+
+    def retire(w, event):
+        """Wait for window ``w``'s copy (None: its output is on the host)."""
+        with spans.span("predict.readback", batch=w):
+            if event is not None:
+                event.synchronize()
 
     done: List[Tuple[torch.Tensor, List[List[str]], int]] = []
     pending = None  # the event behind the previous window's copy
-    for window, ids, n_real in double_buffer(windows(), put_window):
-        out = scan_step(window)  # [K, B, classes], overwritten by the next replay
+    for w, (window, ids, n_real) in enumerate(double_buffer(enumerate(windows()), put_window)):
+        with spans.span("predict.step", batch=w):
+            out = scan_step(window)  # [K, B, classes], overwritten by the next replay
+        event = None
         if cuda:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)  # queued behind this replay, before the next
             event = torch.cuda.Event()
             event.record()
-            if pending is not None:
-                pending.synchronize()  # window k-1 done: at most two in flight
-            pending = event
         else:
             host = out
+        if w > 0:
+            retire(w - 1, pending)  # window k-1 done: at most two in flight
+        pending = event
         done.append((host, ids, n_real))
-    if pending is not None:
-        pending.synchronize()
+    if done:
+        retire(len(done) - 1, pending)
     probs = torch.cat([host[i] for host, _, n_real in done for i in range(n_real)])
     return _keep_real(probs, [i for _, ids, _ in done for batch_ids in ids for i in batch_ids])

@@ -18,7 +18,13 @@
 - early stopping on val accuracy with patience, where a tie is not an
   improvement;
 - a per-epoch progress bar on stderr when it is a tty (``progress_bar``),
-  with the lag-one loss as its postfix.
+  with the lag-one loss as its postfix;
+- before each epoch's validation, a ``perf`` line of ``StepTimer``'s
+  ``step_time_s`` and ``input_stall_pct`` over the epoch's steps; while a
+  span recorder is on (``rxtpu_torch.utils.spans``; the CLI's
+  ``--profile``), a second ``perf`` line after the rolling checkpoint: the
+  epoch's seconds in each span and its counter totals under the names of
+  ``PERF_SECONDS`` and ``PERF_COUNTERS``.
 
 On a mesh (``rxtpu_torch.parallel``; ``train_pipe`` and ``val_pipe`` the
 rank's slices) every rank steps, validates its rows and sums
@@ -53,6 +59,25 @@ from rxtpu_torch.train.optim import (
     backbone_trainable_at_epoch, sgd_state_from_trace, trace_from_sgd_state,
 )
 from rxtpu_torch.train.step import EvalStep, TrainState, make_train_step
+from rxtpu_torch.utils import spans
+
+# an epoch's ``perf`` keys: seconds in each span (validation's own feed is in
+# the feed's spans too), and counter totals times their scale
+PERF_SECONDS = {"pipeline.wait": "queue_wait_s", "prefetch.stage": "stage_s",
+                "pipeline.assemble": "assemble_s", "train.readback": "readback_s",
+                "train.validate": "validate_s", "train.checkpoint": "checkpoint_s"}
+PERF_COUNTERS = {"prefetch.staged_bytes": ("staged_gib", 2.0 ** -30),
+                 "pipeline.assembled_bytes": ("assembled_gib", 2.0 ** -30),
+                 "pipeline.gets": ("gets", 1), "pipeline.gets_empty": ("gets_empty", 1)}
+
+
+def perf_totals(rec: spans.Recorder, before: dict) -> Dict[str, float]:
+    """The ``perf`` keys of what ``rec`` recorded since its snapshot ``before``."""
+    d = rec.since(before)
+    out = {key: d["seconds"].get(name, 0.0) for name, key in PERF_SECONDS.items()}
+    out.update({key: d["counters"].get(name, 0) * scale
+                for name, (key, scale) in PERF_COUNTERS.items()})
+    return out
 
 
 def last_checkpoint_path(cfg: Config) -> str:
@@ -197,15 +222,17 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
         return {"state_dict": state_dict, "optimizer": opt, "step": state.step, **meta}
 
     def save_last(**meta) -> None:
-        p = payload(**meta)
-        if writer:
-            save_checkpoint(last_path, backend=backend, **p)
-        barrier()
+        with spans.span("train.checkpoint"):
+            p = payload(**meta)
+            if writer:
+                save_checkpoint(last_path, backend=backend, **p)
+            barrier()
 
     def validate(epoch: int) -> Dict[str, float]:
-        val_m = evaluate(state, val_pipe, device, crop, dtype, mesh)
-        improved = ckpt.update(val_m["accuracy"], payload())
-        barrier()
+        with spans.span("train.validate"):
+            val_m = evaluate(state, val_pipe, device, crop, dtype, mesh)
+            improved = ckpt.update(val_m["accuracy"], payload())
+            barrier()
         if improved:
             print_fn(f"New best accuracy! Accuracy: {val_m['accuracy']}\nModel saved!")
         print_fn(f"Validation Results - Epoch: {epoch} Average Loss: {val_m['loss']:.4f} "
@@ -229,6 +256,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
                 print_fn("Turn on all the layers")
 
             timer.reset()
+            rec = spans.current()
+            before = rec.snapshot() if rec is not None else None
             sb = start_batch if epoch == start_epoch else 0
             host = ({k: v for k, v in b.items() if k not in ("id_codes", "valid")}
                     for b in train_pipe.epoch(epoch, start_batch=sb))
@@ -238,15 +267,16 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
             prev_m = None
             prev_loss = float("nan")
             while True:
-                with timer.waiting():
+                with timer.waiting(batch_i):
                     batch = next(it, None)
                 if batch is None:
                     break
-                with timer.stepping():
+                with timer.stepping(batch_i):
                     m = train_step(state, batch, seed, trainable)
                     batch_i += 1
                     if prev_m is not None:  # lag-one readback: step i-1 is done
-                        prev_loss = float(prev_m["loss"])
+                        with spans.span("train.readback", batch=batch_i - 2):
+                            prev_loss = float(prev_m["loss"])
                     prev_m = m
                 if pbar is not None:
                     pbar.update(1)
@@ -269,6 +299,8 @@ def run_training(cfg: Config, state: TrainState, train_pipe: Pipeline, val_pipe:
             epochs_without_improvement = 0 if val_m["improved"] else epochs_without_improvement + 1
             save_last(epoch=epoch, best_metric=ckpt.best,
                       epochs_without_improvement=epochs_without_improvement)
+            if rec is not None and rec is spans.current():
+                logger.log(state.step, perf_totals(rec, before), prefix="perf")
             if cfg.train.early_stopping and epochs_without_improvement >= cfg.train.patience:
                 print_fn(f"EarlyStopping: stop after {epoch} epochs")
                 break

@@ -3,7 +3,8 @@
 ``MetricLogger`` appends JSON lines to ``{board_dir}/{experiment_id}/
 metrics.jsonl`` and flushes each one. ``StepTimer`` splits a training
 loop's wall time into waiting for input and stepping; ``input_stall_pct``
-is the waiting share.
+is the waiting share. Its two phases are also the spans ``train.input``
+and ``train.step`` of ``rxtpu_torch.utils.spans`` while a recorder is on.
 """
 
 from __future__ import annotations
@@ -11,8 +12,9 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
+from rxtpu_torch.utils import spans
 
 class MetricLogger:
     def __init__(self, board_dir: str, experiment_id: str):
@@ -42,29 +44,34 @@ class StepTimer:
 
         with timer.waiting():   batch = next(it)       # input time
         with timer.stepping():  m = step(state, ...)   # step time
+
+    ``batch`` (the batch's index in its epoch) goes to the phase's span.
     """
 
     def __init__(self):
         self.reset()
 
     class _Phase:
-        def __init__(self, timer, attr):
-            self.timer, self.attr = timer, attr
+        def __init__(self, timer, attr, name, batch):
+            self.timer, self.attr, self.name, self.batch = timer, attr, name, batch
 
         def __enter__(self):
-            self.t0 = time.perf_counter()
+            self.t0 = time.perf_counter_ns()
+            self.span = spans.begin(self.name, self.batch, self.t0)
 
         def __exit__(self, *exc):
-            dt = time.perf_counter() - self.t0
+            t1 = time.perf_counter_ns()
+            spans.end(self.span, t1)
+            dt = (t1 - self.t0) / 1e9
             setattr(self.timer, self.attr, getattr(self.timer, self.attr) + dt)
             if self.attr == "step_s":
                 self.timer.n_steps += 1
 
-    def waiting(self):
-        return self._Phase(self, "wait_s")
+    def waiting(self, batch: Optional[int] = None):
+        return self._Phase(self, "wait_s", "train.input", batch)
 
-    def stepping(self):
-        return self._Phase(self, "step_s")
+    def stepping(self, batch: Optional[int] = None):
+        return self._Phase(self, "step_s", "train.step", batch)
 
     @property
     def total_s(self) -> float:

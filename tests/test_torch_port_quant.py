@@ -384,11 +384,13 @@ def test_quant_guards(tmp_path, monkeypatch):
                                          "densenet121, got resnet18/arcface"):
         port_cli.main(argv + ["--head", "arcface"])
     # more calibration batches than the experiment has; greedy_jax and
-    # --profile (training skipped: no trace) run on the int8 path too
+    # --profile (training skipped: the test phase's trace alone) run on the
+    # int8 path too
     assert port_cli.main(argv + ["--calib-batches", "5", "--assign-method", "greedy_jax",
                                  "--profile"]) == 0
     assert (tmp_path / "submission_g.csv").exists()
-    assert not (tmp_path / "board" / "g" / "profile").exists()
+    assert [d.name for d in (tmp_path / "board" / "g" / "profile").iterdir()] == ["predict"]
+    assert (tmp_path / "board" / "g" / "profile" / "predict" / "spans.jsonl").exists()
     (tmp_path / "dist").mkdir()
     assert port_cli.main(argv + ["--calib-batches", "5", "--assign-method", "greedy_jax",
                                  "--distributed", "--out-dir", str(tmp_path / "dist")]) == 0

@@ -392,8 +392,8 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     assert (pg[sub8.sirna, 0] == plates).all()
     assert all(g.sirna.is_unique for _, g in sub8.groupby(plates))
     # --assign-method greedy_jax on the run's device: the same plate-leak
-    # assignment as greedy here; --profile traces training only, and the
-    # best checkpoint skips it; --distributed with no cluster runs at world 1
+    # assignment as greedy here; --profile traces training and the test
+    # phase, and the best checkpoint skips training; --distributed with no cluster runs at world 1
     # (rxtpu's warning) and writes the same submission
     os.makedirs("gj")
     assert port_cli.main(argv + ["--assign-method", "greedy_jax", "--profile",
@@ -401,7 +401,8 @@ def test_port_cli_on_synthetic_fixture(tmp_path, monkeypatch, capsys):
     sub_gj = pd.read_csv("gj/submission_fx.csv")
     assert list(sub_gj.id_code) == list(sub.id_code)
     assert list(sub_gj.sirna) == list(sub.sirna)
-    assert not os.path.exists("board/fx/profile")
+    assert os.listdir("board/fx/profile") == ["predict"]  # no training trace
+    assert os.path.exists("board/fx/profile/predict/spans.jsonl")
     os.makedirs("dist")
     assert port_cli.main(argv + ["--distributed", "--out-dir", "dist"]) == 0
     assert "continuing single-process" in capsys.readouterr().err
